@@ -1,0 +1,183 @@
+"""Port parity for the whole transcription path: QwenASREngine of
+qwen3_asr_gguf_tpu_torch on the CPU against the JAX engine, greedy.
+
+- On a kernel-shaped preset (every decode matvec reaches the q4_k kernels in
+  the JAX engine, in Pallas interpret mode) both engines run live in this
+  test and must emit the same tokens per chunk, text and token counts.
+- On the JAX package's golden checkpoints the port must reproduce
+  tests/golden/engine_int4.json, engine_context.json and the text and
+  token counts of engine_transcribe.json.
+"""
+
+import json
+import os
+from dataclasses import replace
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import qwen3_asr_gguf_tpu.models.configs as C
+from qwen3_asr_gguf_tpu.runtime.engine import QwenASREngine as JaxEngine
+from qwen3_asr_gguf_tpu.schema import ASREngineConfig
+from qwen3_asr_gguf_tpu_torch import QwenASREngine
+from qwen3_asr_gguf_tpu_torch.export.synthetic import make_synthetic_checkpoint
+
+GOLDEN_DIR = Path(__file__).parent / "golden"
+
+# text: K % 512 == 0 and N % 512 == 0 for every decode matvec, head_dim 128;
+# encoder: tiny-256's, projecting to the 512-wide decoder
+KERNEL_PRESET = C.ThinkerConfig(
+    audio=C.AudioEncoderConfig(
+        num_mel_bins=128, d_model=64, encoder_layers=1, encoder_attention_heads=4,
+        encoder_ffn_dim=128, downsample_hidden_size=32, output_dim=512,
+    ),
+    text=C.TextDecoderConfig(
+        vocab_size=512, hidden_size=512, num_layers=2, num_heads=4, num_kv_heads=2,
+        head_dim=128, intermediate_size=1024,
+    ),
+)
+TINY_256 = replace(
+    KERNEL_PRESET,
+    audio=replace(KERNEL_PRESET.audio, output_dim=256),
+    text=replace(KERNEL_PRESET.text, hidden_size=256, head_dim=64, intermediate_size=512),
+)
+
+
+def _audio(seconds: float, freq: float = 440.0) -> np.ndarray:
+    t = np.arange(int(16000 * seconds)) / 16000
+    return (np.sin(2 * np.pi * freq * t) * 0.3).astype(np.float32)
+
+
+def _config(model_dir, llm_fn, precision, **kw):
+    return ASREngineConfig(model_dir=model_dir, llm_fn=llm_fn, precision=precision,
+                           chunk_size=2.0, n_ctx=512, verbose=False, max_new_tokens=16,
+                           decode_block=8, **kw)
+
+
+def _record_chunks(engine) -> list:
+    """Wrap the engine's per-chunk decode to record each chunk's tokens."""
+    chunks = []
+    inner = engine._safe_decode
+
+    def wrapped(*args, **kw):
+        res, cache = inner(*args, **kw)
+        chunks.append(list(res.stable_tokens))
+        return res, cache
+
+    engine._safe_decode = wrapped
+    return chunks
+
+
+@pytest.fixture(scope="module")
+def kernel_dir(tmp_path_factory):
+    C.PRESETS.setdefault("kernel-512", KERNEL_PRESET)
+    d = tmp_path_factory.mktemp("kernel_ckpt")
+    make_synthetic_checkpoint(str(d), "kernel-512", quant="q4_k", seed=0)
+    return str(d)
+
+
+def test_greedy_tokens_equal_jax_on_kernel_shapes(kernel_dir):
+    from qwen3_asr_gguf_tpu.ops import pallas_q4k as pq
+
+    cfg = _config(kernel_dir, "qwen3_asr_llm.q4_k.gguf", "int4")
+    jax_engine = JaxEngine(cfg)
+    port = QwenASREngine(cfg, device="cpu")
+    qkv = port.generator.params["layers"][0]["qkv_proj"]
+    assert qkv.shape == (1024, 512)
+    assert pq.supported_normed((1, 512), jax_engine.generator.layers_list[0]["qkv_proj"])
+    # 3 chunks: fresh prefill, 1-chunk reuse, header-only reuse. Random
+    # weights give flat bf16 logits (top-2 often 1-2 ulp apart), so some
+    # inputs flip a near-tie between the jitted JAX engine and the port
+    # (ROADMAP.md Queue 3 records one: 550 Hz, chunk 1, token 9, margin
+    # 2 bf16 ulp; the JAX engine under jax.disable_jit() emits the port's
+    # tokens there). This input has no such tie.
+    audio = _audio(5.5, 440.0)
+    results = []
+    for engine in (jax_engine, port):
+        chunks = _record_chunks(engine)
+        np.random.seed(11)
+        res = engine.asr(audio, context="", language="English", chunk_size_sec=2.0,
+                         memory_chunks=1, temperature=0.0)
+        results.append((chunks, res.text, res.performance["prefill_tokens"],
+                        res.performance["decode_tokens"]))
+    assert len(results[0][0]) == 3
+    assert results[1] == results[0]
+
+
+def _golden(name: str) -> dict:
+    return json.loads((GOLDEN_DIR / f"{name}.json").read_text())
+
+
+def test_reproduces_golden_engine_int4(tmp_path):
+    C.PRESETS.setdefault("tiny-256", TINY_256)
+    make_synthetic_checkpoint(str(tmp_path), "tiny-256", quant="q4_k", seed=0)
+    engine = QwenASREngine(_config(str(tmp_path), "qwen3_asr_llm.q4_k.gguf", "int4"),
+                           device="cpu")
+    np.random.seed(11)
+    res = engine.asr(_audio(3.5, 550.0), context="", language="English",
+                     chunk_size_sec=2.0, memory_chunks=1, temperature=0.0)
+    assert {
+        "text": res.text,
+        "prefill_tokens": res.performance["prefill_tokens"],
+        "decode_tokens": res.performance["decode_tokens"],
+    } == _golden("engine_int4")
+
+
+@pytest.fixture(scope="module")
+def golden_engine(tmp_path_factory):
+    """The JAX golden fixture's directory (ASR checkpoint plus an aligner
+    one) and its f32 engine settings, aligner off."""
+    d = str(tmp_path_factory.mktemp("golden_ckpt"))
+    make_synthetic_checkpoint(d, "tiny", quant="f16", seed=0)
+    make_synthetic_checkpoint(d, "tiny", quant="f16", aligner=True, seed=1)
+    return QwenASREngine(_config(d, "qwen3_asr_llm.f16.gguf", "f32"), device="cpu")
+
+
+def test_reproduces_golden_engine_context(golden_engine):
+    np.random.seed(11)
+    res = golden_engine.asr(_audio(1.5, 330.0), context="golden test context",
+                            language="Chinese", chunk_size_sec=2.0, temperature=0.0)
+    assert {"text": res.text, "prefill_tokens": res.performance["prefill_tokens"]} \
+        == _golden("engine_context")
+
+
+def test_reproduces_golden_engine_transcribe(golden_engine):
+    """Two chunks with memory and KV prefix reuse; the fixture's
+    n_align_items waits for the forced aligner."""
+    np.random.seed(11)
+    res = golden_engine.asr(_audio(3.5, 550.0), context="", language="English",
+                            chunk_size_sec=2.0, memory_chunks=1, temperature=0.0)
+    want = _golden("engine_transcribe")
+    del want["n_align_items"]
+    assert {
+        "text": res.text,
+        "prefill_tokens": res.performance["prefill_tokens"],
+        "decode_tokens": res.performance["decode_tokens"],
+    } == want
+
+
+def test_not_ported_options_raise(kernel_dir):
+    for kw in ({"enable_aligner": True}, {"mesh_shape": {"model": 2}},
+               {"kv_cache_dtype": "int8"}):
+        with pytest.raises(NotImplementedError):
+            QwenASREngine(_config(kernel_dir, "qwen3_asr_llm.q4_k.gguf", "int4", **kw),
+                          device="cpu")
+    with pytest.raises(NotImplementedError):
+        QwenASREngine(_config(kernel_dir, "qwen3_asr_llm.q4_k.gguf", "int8"), device="cpu")
+
+
+def test_q6k_embed_dequantizes_on_device_without_native(kernel_dir, monkeypatch):
+    """Without the native codec a large q6_k embed decodes with the torch
+    q6_k op on the engine's device, to the same bf16 table as the host path."""
+    from qwen3_asr_gguf_tpu import native
+    from qwen3_asr_gguf_tpu_torch.models import params as P
+
+    path = os.path.join(kernel_dir, "qwen3_asr_llm.q4_k.gguf")
+    _, host, _ = P.load_decoder_gguf(path)
+    monkeypatch.setattr(P, "DEVICE_Q6K_BYTES", 0)
+    monkeypatch.setattr(native, "available", lambda: False)
+    _, dev, _ = P.load_decoder_gguf(path)
+    assert dev["embed"].dtype == host["embed"].dtype == torch.bfloat16
+    assert torch.equal(dev["embed"], host["embed"])
