@@ -19,11 +19,25 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    50.2 s synthetic clip: one warm-up pass, then temperature 0.4 and 0,
    each with the kernels' launch counts of that run;
 6. one full-width decode step through the kernels against the same step on
-   dense dequantized weights (cosine bound), and finite encoder output.
+   dense dequantized weights (cosine bound), and finite encoder output;
+7. the multi-row q4_k matmul against its plain version and, row by row,
+   against the matvec kernel, at T = 8 (the serving batch) and T = 64, and
+   the int8-KV rows attention against its plain version at B = 8 over a
+   2048-slot cache, windows 256, 1024 and 2048; both timed as in phase 3;
+8. one batched decode step (forward_step_rows, B = 8) through the kernels
+   against the same step on dense weights with the plain attention, from
+   the same prefilled caches, for bf16 and int8 KV (cosine bound);
+9. the port's OpenAI-compatible server, built by its CLI's build function
+   from real arguments (continuous batching, 8 rows, bf16 KV), answering 16
+   concurrent 10 s requests and one 50.2 s request over HTTP, with
+   throughput, latency and the batcher's counters;
+10. a continuous batcher on an int8-KV engine (the `tools/bench_serve.py
+   --kv int8` configuration): 16 greedy 10 s requests.
 
-The last lines are the kernels summary, the nvidia-smi line and
-{"ok": true, "device": {...}}. Without a CUDA device, or run where the
-package is missing, it exits non-zero and prints no result.
+Every kernel's launches are counted in the run of its path (counts set to 0
+just before it). The last lines are the kernels summary, the nvidia-smi
+line and {"ok": true, "device": {...}}. Without a CUDA device, or run where
+the package is missing, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -34,7 +48,9 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -43,6 +59,21 @@ CLIP_SECONDS = 50.2
 TIMED_RUNS = 50
 KERNEL_BOUND = 1e-2  # max|kernel - plain| <= KERNEL_BOUND * max|plain| (bf16 outputs)
 STEP_COSINE_BOUND = 0.99  # int8-activation kernel path vs dense bf16 weights
+ROWS_T = (8, 64)  # multi-row matmul batches: the serving default and the largest
+SERVE_CLIP_SECONDS = 10.0
+SERVE_REQUESTS = 16
+REPLACES = {
+    "q4k_matvec": "qwen3_asr_gguf_tpu/ops/pallas_q4k.py:324",
+    "q4k_matvec_normed": "qwen3_asr_gguf_tpu/ops/pallas_q4k.py:594",
+    "q4k_matmul_rows": "qwen3_asr_gguf_tpu/ops/pallas_q4k.py:419",
+    "gqa_rows_q8_attention": "qwen3_asr_gguf_tpu/ops/pallas_attn.py:215",
+}
+SOURCES = {
+    "q4k_matvec": "qwen3_asr_gguf_tpu_torch/csrc/q4k_matvec.cu",
+    "q4k_matvec_normed": "qwen3_asr_gguf_tpu_torch/csrc/q4k_matvec.cu",
+    "q4k_matmul_rows": "qwen3_asr_gguf_tpu_torch/csrc/q4k_matmul_rows.cu",
+    "gqa_rows_q8_attention": "qwen3_asr_gguf_tpu_torch/csrc/attn_rows_q8.cu",
+}
 
 
 def emit(obj: dict) -> None:
@@ -92,23 +123,21 @@ def time_ms(fn, weights: list, torch) -> float:
     return times[len(times) // 2]
 
 
-def kernel_phase(torch, dev, cfg) -> list[dict]:
-    from qwen3_asr_gguf_tpu_torch.ops import q4k
-
+def decode_shapes(cfg) -> list[tuple[str, int, int]]:
+    """(name, N, K) of every q4_k weight of a 1.7B decode step."""
     d, m, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    head_rows = -(-v // 1024) * 1024  # the engine pads the head to 1024 rows
-    cases = [  # (kernel, shape name, N, K)
-        ("q4k_matvec", "o_proj", d, hq * hd),
-        ("q4k_matvec", "down_proj", d, m),
-        ("q4k_matvec", "lm_head", head_rows, d),
-        ("q4k_matvec_normed", "qkv_proj", (hq + 2 * hkv) * hd, d),
-        ("q4k_matvec_normed", "gateup_proj", 2 * m, d),
-    ]
-    g = torch.Generator(device=dev)
-    g.manual_seed(0)
+    return [("o_proj", d, hq * hd), ("down_proj", d, m),
+            ("lm_head", -(-v // 1024) * 1024, d),  # the engine pads the head to 1024 rows
+            ("qkv_proj", (hq + 2 * hkv) * hd, d), ("gateup_proj", 2 * m, d)]
 
-    def random_weight(n, k):
+
+def cold_weights(torch, dev, g, n, k):
+    """(bytes of one weight, copies of a random q4_k weight [N, K] on the
+    card, enough to exceed the 128 MB that keeps each call cold in L2)."""
+    from qwen3_asr_gguf_tpu_torch.ops import q4k
+
+    def random_weight():
         # any bytes are a valid q4_k weight in this layout: draw it on the card
         return q4k.Q4KWeight(
             packed=torch.randint(0, 256, (n // 2, k), generator=g, device=dev, dtype=torch.uint8),
@@ -117,10 +146,21 @@ def kernel_phase(torch, dev, cfg) -> list[dict]:
             dd_t=torch.rand((2 * (k // 256), n), generator=g, device=dev) * 1e-3,
         )
 
+    nbytes = n * k // 2 + 2 * (k // 32) * n + 4 * (k // 128) * n
+    return nbytes, [random_weight() for _ in range(max(2, -(-(128 << 20) // nbytes)))]
+
+
+def kernel_phase(torch, dev, cfg) -> list[dict]:
+    from qwen3_asr_gguf_tpu_torch.ops import q4k
+
+    cases = [  # (kernel, shape name, N, K): qkv and gate_up fuse the rms_norm
+        ("q4k_matvec_normed" if shape in ("qkv_proj", "gateup_proj") else "q4k_matvec", shape,
+         n, k) for shape, n, k in decode_shapes(cfg)]
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
     rows = []
     for name, shape, n, k in cases:
-        nbytes = n * k // 2 + 2 * (k // 32) * n + 4 * (k // 128) * n
-        weights = [random_weight(n, k) for _ in range(max(2, -(-(128 << 20) // nbytes)))]
+        nbytes, weights = cold_weights(torch, dev, g, n, k)
         x = torch.randn((1, k), generator=g, device=dev).to(torch.bfloat16)
         norm_w = torch.rand(k, generator=g, device=dev) + 0.5
         if name == "q4k_matvec":
@@ -147,8 +187,294 @@ def kernel_phase(torch, dev, cfg) -> list[dict]:
     return rows
 
 
+def rel_check(torch, what: str, got, want) -> tuple[float, float]:
+    """(max abs error, max |want|); raises past KERNEL_BOUND."""
+    got, want = got.float(), want.float()
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    require(err <= KERNEL_BOUND * scale, f"{what}: {err} > {KERNEL_BOUND} * {scale}")
+    return err, scale
+
+
+def rows_kernel_phase(torch, dev, cfg) -> list[dict]:
+    """q4k_matmul_rows at T = 8 and 64 against its plain version and, row
+    by row, against q4k_matvec."""
+    from qwen3_asr_gguf_tpu_torch.ops import q4k
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    rows = []
+    for shape, n, k in decode_shapes(cfg):
+        nbytes, weights = cold_weights(torch, dev, g, n, k)
+        for t in ROWS_T:
+            x = torch.randn((t, k), generator=g, device=dev).to(torch.bfloat16)
+            kern = lambda w: q4k.q4k_matmul_rows(x, w)  # noqa: E731
+            plain = lambda w: q4k.q4k_matmul_rows_ref(x, w)  # noqa: E731
+            got = kern(weights[0])
+            err, scale = rel_check(torch, f"q4k_matmul_rows/{shape}/T={t}", got,
+                                   plain(weights[0]))
+            per_row = torch.cat([q4k.q4k_matvec(x[i:i + 1], weights[0]) for i in range(t)])
+            row_err, _ = rel_check(torch, f"q4k_matmul_rows/{shape}/T={t} vs q4k_matvec", got,
+                                   per_row)
+            ms = time_ms(kern, weights, torch)
+            row = {"phase": "kernel_rows", "name": "q4k_matmul_rows", "shape": shape, "t": t,
+                   "n": n, "k": k, "max_abs_err": err, "max_abs_plain": scale,
+                   "max_abs_err_vs_matvec_rows": row_err,
+                   "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain", "ok": True,
+                   "ms": ms, "plain_ms": time_ms(plain, weights, torch),
+                   "weight_mb": nbytes / 1e6, "gb_per_s": nbytes / (ms * 1e6)}
+            emit(row)
+            rows.append(row)
+        del weights
+    return rows
+
+
+def attn_kernel_phase(torch, dev, cfg) -> list[dict]:
+    """gqa_rows_q8_attention against its plain version at the 1.7B serving
+    shape: B = 8 rows over a 2048-slot int8 cache."""
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+    from qwen3_asr_gguf_tpu_torch.ops import attn
+
+    b, s_max = 8, 2048
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    caches = []  # copies enough to exceed L2, as a decode step finds the cache
+    for _ in range(4):
+        k, ks = dec._quant_kv(torch.randn((b, s_max, hkv, d), generator=g, device=dev))
+        v, vs = dec._quant_kv(torch.randn((b, s_max, hkv, d), generator=g, device=dev))
+        caches.append((k, ks, v, vs))
+    q = (torch.randn((b, hq, d), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    scale = d ** -0.5
+    rows = []
+    for win in (256, 1024, 2048):
+        # one row inside tile 0, one at a tile edge, one at win - 1, the rest spread
+        spread = torch.randint(0, win, (b - 3,), generator=g, device=dev)
+        poss = torch.cat([torch.tensor([5, 255, win - 1], device=dev), spread])
+        kern = lambda c: attn.gqa_rows_q8_attention(q, *c, poss, scale, win)  # noqa: E731
+        plain = lambda c: attn.gqa_rows_q8_attention_ref(q, *c, poss, scale, win)  # noqa: E731
+        err, mag = rel_check(torch, f"gqa_rows_q8_attention/win={win}", kern(caches[0]),
+                             plain(caches[0]))
+        row = {"phase": "kernel_attn", "name": "gqa_rows_q8_attention", "b": b, "hq": hq,
+               "hkv": hkv, "d": d, "s": s_max, "win": win, "poss": poss.tolist(),
+               "max_abs_err": err, "max_abs_plain": mag,
+               "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain", "ok": True,
+               "ms": time_ms(kern, caches, torch), "plain_ms": time_ms(plain, caches, torch)}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def rows_step_check(torch, engine, kv_dtype) -> dict:
+    """One batched decode step (B = 8) through the kernels against the same
+    step on dense dequantized bf16 weights with the plain attention, from
+    the same prefilled caches."""
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+    from qwen3_asr_gguf_tpu_torch.ops import attn
+    from qwen3_asr_gguf_tpu_torch.ops.q4k import dequant_mxu
+
+    gen, dev = engine.generator, engine.device
+    cfg, dense = gen.cfg, gen.prefill_params
+    b = 8
+    lens = [40 + 24 * i for i in range(b)]
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    caches = dec.init_cache(cfg, 512, kv_dtype, device=dev, rows=b)
+    last = []
+    for i, t in enumerate(lens):
+        ids = torch.randint(0, cfg.vocab_size, (t,), generator=g, device=dev)
+        lane = {name: [c[i] for c in cs] for name, cs in caches.items()}
+        dec.forward_prefill(dense, cfg, dec.embed_tokens(dense, ids), lane)
+        last.append(ids[-1])
+    twin = {name: [c.clone() for c in cs] for name, cs in caches.items()}
+    embd = dec.embed_tokens(dense, torch.stack(last))
+    poss = torch.tensor(lens, device=dev)
+    before = attn.gqa_rows_q8_attention.launches
+    h_k, _ = dec.forward_step_rows(gen.params["layers"], gen.params["final_norm"], cfg, embd,
+                                   caches, poss, attn_window=512)
+    lk = dec.lm_logits(gen.params, h_k, cfg.vocab_size)
+    kernel_attn = attn.gqa_rows_q8_attention.launches - before
+    fast = attn.gqa_rows_q8_attention
+    attn.gqa_rows_q8_attention = attn.gqa_rows_q8_attention_ref  # the plain attention
+    try:
+        h_d, _ = dec.forward_step_rows(dense["layers"], dense["final_norm"], cfg, embd, twin,
+                                       poss, attn_window=512)
+    finally:
+        attn.gqa_rows_q8_attention = fast
+    ld = dec.lm_logits({"lm_head": dequant_mxu(gen.params["lm_head"])}, h_d, cfg.vocab_size)
+    cos = torch.nn.functional.cosine_similarity(lk, ld, dim=1)
+    finite = bool(torch.isfinite(lk).all())
+    row = {"phase": "rows_step_check", "kv": str(kv_dtype).replace("torch.", ""), "rows": b,
+           "logits": list(lk.shape), "finite": finite,
+           "cosine_kernel_vs_dense_min": cos.min().item(), "cosine_per_row": cos.tolist(),
+           "rows_attention_launches": kernel_attn, "bound": STEP_COSINE_BOUND}
+    emit(row)
+    require(finite and tuple(lk.shape) == (b, cfg.vocab_size), "rows-step logits malformed")
+    require(cos.min().item() >= STEP_COSINE_BOUND,
+            f"rows step ({kv_dtype}): cosine {cos.min().item()} < {STEP_COSINE_BOUND}")
+    require(kv_dtype != torch.int8 or kernel_attn == cfg.num_layers,
+            f"rows step: {kernel_attn} rows-attention launches, want one per layer")
+    return row
+
+
+def tone(seconds: float, freq: float):
+    import numpy as np
+
+    t = np.arange(int(seconds * 16_000)) / 16_000
+    return (np.sin(2 * np.pi * freq * t) * 0.3).astype(np.float32)
+
+
+def wav_bytes(audio) -> bytes:
+    import io
+    import wave
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16_000)
+        w.writeframes((np.clip(audio, -1, 1) * 32767).astype(np.int16).tobytes())
+    return buf.getvalue()
+
+
+def post_transcription(url: str, audio, response_format: str) -> tuple[int, str, float]:
+    """(status, body, seconds) of one multipart POST."""
+    import urllib.request
+
+    bd = "chipsmokeboundary"
+    fields = {"response_format": response_format, "language": "zh"}
+    body = (f'--{bd}\r\nContent-Disposition: form-data; name="file"; filename="a.wav"\r\n'
+            "Content-Type: audio/wav\r\n\r\n").encode() + wav_bytes(audio)
+    for name, value in fields.items():
+        body += (f'\r\n--{bd}\r\nContent-Disposition: form-data; name="{name}"\r\n\r\n'
+                 f"{value}").encode()
+    body += f"\r\n--{bd}--\r\n".encode()
+    req = urllib.request.Request(f"{url}/v1/audio/transcriptions", data=body,
+                                 headers={"Content-Type": f"multipart/form-data; boundary={bd}"})
+    t0 = time.time()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, r.read().decode("utf-8"), time.time() - t0
+
+
+def get_json(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        require(r.status == 200, f"GET {url}: {r.status}")
+        return json.loads(r.read())
+
+
+def serve_phase(torch, dev, model_dir: Path) -> dict:
+    """The port's server, built by its CLI from real arguments, on HTTP:
+    16 concurrent 10 s requests (8 tones, json and text) and one 50.2 s
+    request (two chunks with memory through successive rows)."""
+    from http.server import ThreadingHTTPServer
+
+    from qwen3_asr_gguf_tpu_torch.cli import serve
+    from qwen3_asr_gguf_tpu_torch.ops import attn, q4k
+
+    argv = ["--model-dir", str(model_dir), "--max-batch", "8", "--n-ctx", "2048",
+            "--chunk-size", "40", "--device", str(dev)]
+    t0 = time.time()
+    # the engine settings of the asr phase: random weights would decode 512 tokens
+    server, engine, batcher = serve.build(argv, max_new_tokens=96, decode_block=96)
+    init_s = time.time() - t0
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(server))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        require(get_json(f"{url}/health") == {"status": "ok"}, "/health")
+        models = get_json(f"{url}/v1/models")
+        require(models["data"][0]["id"] == serve.MODEL_NAME, f"/v1/models: {models}")
+        jobs = [(tone(SERVE_CLIP_SECONDS, 200 + 50 * (i % 8)), "json" if i % 2 else "text")
+                for i in range(SERVE_REQUESTS)]
+        jobs.append((synthetic_clip(CLIP_SECONDS), "json"))
+        for counter in (q4k.q4k_matvec, q4k.q4k_matvec_normed, q4k.q4k_matmul_rows,
+                        attn.gqa_rows_q8_attention):
+            counter.launches = 0
+        blocks0 = batcher.stats["n_blocks"]
+        t0 = time.time()
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            results = list(pool.map(lambda j: post_transcription(url, *j), jobs))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {"q4k_matmul_rows": q4k.q4k_matmul_rows.launches,
+                    "q4k_matvec": q4k.q4k_matvec.launches,
+                    "q4k_matvec_normed": q4k.q4k_matvec_normed.launches,
+                    "gqa_rows_q8_attention": attn.gqa_rows_q8_attention.launches}
+        stats = get_json(f"{url}/stats")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+    texts = []
+    for (audio, fmt), (status, body, _) in zip(jobs, results):
+        require(status == 200, f"POST answered {status}: {body[:200]}")
+        texts.append(json.loads(body)["text"] if fmt == "json" else body)
+    require(all(isinstance(t, str) and t for t in texts), "an empty transcript")
+    lat = sorted(r[2] for r in results)
+    audio_s = sum(len(a) for a, _ in jobs) / 16_000
+    steps = (stats["batching"]["n_blocks"] - blocks0) * batcher.block
+    row = {"phase": "serve", "kv": "bf16", "argv": argv, "engine_init_s": init_s,
+           "requests": len(jobs), "audio_s": audio_s, "wall_s": wall,
+           "s_audio_per_s": audio_s / wall, "latency_p50_s": lat[len(lat) // 2],
+           "latency_p95_s": lat[min(len(lat) - 1, math.ceil(0.95 * len(lat)) - 1)],
+           "text_chars_min": min(len(t) for t in texts), "batcher": stats["batching"],
+           "decode_steps": steps, "launches": launches,
+           "rows_matmul_launches_per_step": launches["q4k_matmul_rows"] / max(steps, 1)}
+    emit(row)
+    require(launches["q4k_matmul_rows"] > 0, f"the multi-row matmul never launched: {launches}")
+    del server, engine, batcher
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve_int8_phase(torch, dev, model_dir: Path) -> dict:
+    """A continuous batcher on an int8-KV engine: 16 greedy 10 s requests."""
+    from qwen3_asr_gguf_tpu_torch import ASREngineConfig, QwenASREngine
+    from qwen3_asr_gguf_tpu_torch.ops import attn, q4k
+    from qwen3_asr_gguf_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    engine = QwenASREngine(ASREngineConfig(
+        model_dir=str(model_dir), llm_fn="qwen3_asr_llm.q4_k.gguf", precision="int4",
+        n_ctx=2048, chunk_size=40.0, verbose=False, kv_cache_dtype="int8",
+    ), device=dev)
+    batcher = ContinuousBatcher(engine, max_batch=8, block=16, max_new_tokens=32)
+    audios = [tone(SERVE_CLIP_SECONDS, 200 + 50 * (i % 8)) for i in range(SERVE_REQUESTS)]
+    try:
+        q4k.q4k_matmul_rows.launches = 0
+        attn.gqa_rows_q8_attention.launches = 0
+        t0 = time.time()
+        with ThreadPoolExecutor(len(audios)) as pool:
+            results = list(pool.map(
+                lambda a: batcher.submit(a, language="Chinese", temperature=0.0), audios))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {"q4k_matmul_rows": q4k.q4k_matmul_rows.launches,
+                    "gqa_rows_q8_attention": attn.gqa_rows_q8_attention.launches}
+        stats = batcher.stats
+    finally:
+        batcher.close()
+    row = {"phase": "serve_int8_kv", "requests": len(audios),
+           "audio_s": len(audios) * SERVE_CLIP_SECONDS, "wall_s": wall,
+           "s_audio_per_s": len(audios) * SERVE_CLIP_SECONDS / wall,
+           "text_chars_min": min(len(r.text) for r in results), "batcher": stats,
+           "launches": launches}
+    emit(row)
+    require(all(r.text for r in results), "an empty transcript")
+    require(all(c > 0 for c in launches.values()), f"a rows kernel never launched: {launches}")
+    del engine, batcher
+    torch.cuda.empty_cache()
+    return row
+
+
 def ensure_checkpoint() -> Path:
-    from qwen3_asr_gguf_tpu import native
+    from qwen3_asr_gguf_tpu_torch import native
     from qwen3_asr_gguf_tpu_torch.export.synthetic import make_synthetic_checkpoint
 
     t0 = time.time()
@@ -211,10 +537,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from qwen3_asr_gguf_tpu.models.configs import preset
-    from qwen3_asr_gguf_tpu.schema import ASREngineConfig
-    from qwen3_asr_gguf_tpu.text.tokenizer import _HAS_REGEX
-    from qwen3_asr_gguf_tpu_torch import QwenASREngine
+    from qwen3_asr_gguf_tpu_torch import ASREngineConfig, QwenASREngine, preset
     from qwen3_asr_gguf_tpu_torch.ops import _build, q4k
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -225,8 +548,7 @@ def main() -> int:
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0],
-          "tokenizer_regex": _HAS_REGEX})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
     t0 = time.time()
     _build.build(force=True)
@@ -236,6 +558,8 @@ def main() -> int:
 
     cfg = preset(PRESET)
     kernel_rows = kernel_phase(torch, dev, cfg.text)
+    kernel_rows += rows_kernel_phase(torch, dev, cfg.text)
+    kernel_rows += attn_kernel_phase(torch, dev, cfg.text)
 
     model_dir = ensure_checkpoint()
     t0 = time.time()
@@ -291,21 +615,37 @@ def main() -> int:
     require(bool(torch.isfinite(emb).all()), "encoder output not finite")
     emit({"phase": "encoder_check", "shape": list(emb.shape), "finite": True})
 
-    replaces = {
-        "q4k_matvec": "qwen3_asr_gguf_tpu/ops/pallas_q4k.py:324",
-        "q4k_matvec_normed": "qwen3_asr_gguf_tpu/ops/pallas_q4k.py:594",
-    }
+    for kv in (torch.bfloat16, torch.int8):
+        rows_step_check(torch, engine, kv)
+    del engine
+    torch.cuda.empty_cache()
+
+    served = serve_phase(torch, dev, model_dir)
+    served_int8 = serve_int8_phase(torch, dev, model_dir)
+    # each kernel's launches from the run of its own path
+    launches["q4k_matmul_rows"] = served["launches"]["q4k_matmul_rows"]
+    launches["gqa_rows_q8_attention"] = served_int8["launches"]["gqa_rows_q8_attention"]
+    paths = {"q4k_matvec": "asr (temperature 0.4)", "q4k_matvec_normed": "asr (temperature 0.4)",
+             "q4k_matmul_rows": "serve (bf16 KV)", "gqa_rows_q8_attention": "serve_int8_kv"}
+
+    def case(r):
+        if "t" in r:
+            return f"{r['shape']}/T={r['t']}"
+        return r.get("shape") or f"win={r['win']}"
+
     kernels = []
-    for name in replaces:
+    for name in REPLACES:
         mine = [r for r in kernel_rows if r["name"] == name]
+        summed = [r for r in mine if r.get("t", ROWS_T[0]) == ROWS_T[0]]
         kernels.append({
-            "name": name, "route": "cuda", "source": "qwen3_asr_gguf_tpu_torch/csrc/q4k_matvec.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name], "path": paths[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            # one call at each of the kernel's main-path shapes, summed
-            "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
-            "shapes": {r["shape"]: {"ms": r["ms"], "plain_ms": r["plain_ms"],
-                                    "max_abs_err": r["max_abs_err"]} for r in mine},
+            # one call at each of the kernel's main-path shapes (the multi-row
+            # matmul at T = 8, the serving batch), summed
+            "ms": sum(r["ms"] for r in summed), "plain_ms": sum(r["plain_ms"] for r in summed),
+            "shapes": {case(r): {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                                 "max_abs_err": r["max_abs_err"]} for r in mine},
         })
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)

@@ -11,6 +11,7 @@ This package never imports JAX.
 
 from __future__ import annotations
 
+from qwen3_asr_gguf_tpu.models.configs import preset
 from qwen3_asr_gguf_tpu.schema import (
     ASREngineConfig,
     DecodeResult,
@@ -19,7 +20,8 @@ from qwen3_asr_gguf_tpu.schema import (
 
 __version__ = "0.1.0"
 
-__all__ = ["ASREngineConfig", "DecodeResult", "TranscribeResult", "QwenASREngine", "__version__"]
+__all__ = ["ASREngineConfig", "DecodeResult", "TranscribeResult", "QwenASREngine", "native",
+           "preset", "__version__"]
 
 
 def __getattr__(name: str):
@@ -28,4 +30,8 @@ def __getattr__(name: str):
         from .runtime.engine import QwenASREngine
 
         return QwenASREngine
+    if name == "native":  # the shared C codec (q4_k quantize/dequant on the host)
+        from qwen3_asr_gguf_tpu import native
+
+        return native
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

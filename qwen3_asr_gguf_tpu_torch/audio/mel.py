@@ -114,29 +114,36 @@ class LogMelFrontend:
         self._dft = torch.from_numpy(np.concatenate([dft_cos, dft_sin], axis=1)).to(device)
 
     def _power_mel(self, frames: torch.Tensor) -> torch.Tensor:
-        """frames [F, N_FFT] (unwindowed) -> log10 mel power [F, n_mels]."""
-        spec = torch.matmul(frames * self._window, self._dft)  # [F, 2*n_bins]
-        n_bins = spec.shape[1] // 2
-        re, im = spec[:, :n_bins], spec[:, n_bins:]
+        """frames [..., F, N_FFT] (unwindowed) -> log10 mel power [..., F, n_mels]."""
+        spec = torch.matmul(frames * self._window, self._dft)  # [..., F, 2*n_bins]
+        n_bins = spec.shape[-1] // 2
+        re, im = spec[..., :n_bins], spec[..., n_bins:]
         mel = torch.matmul(re * re + im * im, self._filters)
         return torch.log10(torch.clamp(mel, min=1e-10))
 
     def __call__(self, audio: torch.Tensor) -> torch.Tensor:
-        """audio [n] f32 -> [n_mels, n // HOP] (the `_log_mel_jit` frames)."""
+        """audio [..., n] f32 -> [..., n_mels, n // HOP] (the `_log_mel_jit`
+        frames); a leading batch axis holds same-length signals."""
         pad = N_FFT // 2
-        y = F.pad(audio.float()[None, None], (pad, pad), mode="reflect")[0, 0]
-        frames = y.unfold(0, N_FFT, HOP)  # [F, N_FFT]
-        log_spec = self._power_mel(frames)[: audio.shape[-1] // HOP]
-        log_spec = torch.maximum(log_spec, log_spec.max() - 8.0)
-        return ((log_spec + 4.0) / 4.0).T
+        lead = audio.shape[:-1]
+        y = F.pad(audio.float().reshape(-1, 1, audio.shape[-1]), (pad, pad), mode="reflect")
+        frames = y[:, 0].unfold(-1, N_FFT, HOP)  # [B, F, N_FFT]
+        log_spec = self._power_mel(frames)[:, : audio.shape[-1] // HOP]
+        log_spec = torch.maximum(log_spec, log_spec.amax(dim=(1, 2), keepdim=True) - 8.0)
+        return ((log_spec + 4.0) / 4.0).transpose(1, 2).reshape(*lead, N_MELS, -1)
 
-    def padded(self, y: torch.Tensor, valid_frames: int, n_frames_bucket: int) -> torch.Tensor:
-        """Bucketed log-mel (the `_log_mel_padded_jit` frames): y is the
-        `pad_signal_for_bucket` signal; frames >= valid_frames are zeroed and
-        the range clamp maxes over the valid frames only."""
-        frames = y.float().unfold(0, N_FFT, HOP)[:n_frames_bucket]
-        log_spec = self._power_mel(frames)
-        valid = (torch.arange(n_frames_bucket, device=y.device) < valid_frames)[:, None]
-        vmax = torch.where(valid, log_spec, torch.full_like(log_spec, -float("inf"))).max()
+    def padded(self, y: torch.Tensor, valid_frames, n_frames_bucket: int) -> torch.Tensor:
+        """Bucketed log-mel (the `_log_mel_padded_jit` frames): y [..., L] is
+        the `pad_signal_for_bucket` signal and `valid_frames` an int or one
+        per signal; frames >= valid_frames are zeroed and the range clamp
+        maxes over the valid frames only."""
+        lead = y.shape[:-1]
+        frames = y.float().reshape(-1, y.shape[-1]).unfold(-1, N_FFT, HOP)[:, :n_frames_bucket]
+        log_spec = self._power_mel(frames)  # [B, F, n_mels]
+        vf = torch.as_tensor(valid_frames, device=y.device).reshape(-1, 1, 1)
+        valid = torch.arange(n_frames_bucket, device=y.device)[None, :, None] < vf
+        vmax = torch.where(valid, log_spec, torch.full_like(log_spec, -float("inf"))).amax(
+            dim=(1, 2), keepdim=True)
         log_spec = torch.maximum(log_spec, vmax - 8.0)
-        return torch.where(valid, (log_spec + 4.0) / 4.0, torch.zeros_like(log_spec)).T
+        out = torch.where(valid, (log_spec + 4.0) / 4.0, torch.zeros_like(log_spec))
+        return out.transpose(1, 2).reshape(*lead, self._filters.shape[1], n_frames_bucket)

@@ -26,57 +26,14 @@
 // planes), so their loads are not coalesced; a repacked Hopper layout with
 // scales beside their weights (and wgmma/TMA for the batched case) comes later.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "q4k_common.cuh"
 
 namespace {
 
-constexpr int GROUP = 32;
-constexpr int QUANT_THREADS = 256;
-constexpr int MV_WARPS = 8;
+using namespace q4k;
+
 constexpr int MAX_GRID = 4096;
 constexpr int MAX_NORMED_K = 2048;
-constexpr float INV127 = (float)(1.0 / 127.0);
-
-__device__ __forceinline__ float load_x(const void* x, int x_bf16, int i) {
-  return x_bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(x)[i])
-                : reinterpret_cast<const float*>(x)[i];
-}
-
-// Quantize 32-groups of `row` (already in final f32 form) into xq/sx/xsum.
-__device__ __forceinline__ void quantize_groups(const float* row, int k, int8_t* xq,
-                                                float* sx, float* xsum) {
-  const int groups = k / GROUP;
-  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
-    const float* v = row + g * GROUP;
-    float amax = 0.f, s = 0.f;
-#pragma unroll
-    for (int e = 0; e < GROUP; ++e) {
-      amax = fmaxf(amax, fabsf(v[e]));
-      s += v[e];
-    }
-    const float sxg = fmaxf(amax, 1e-10f) * INV127;
-    const float r = 1.0f / sxg;
-#pragma unroll
-    for (int e = 0; e < GROUP; ++e) {
-      int q = __float2int_rn(v[e] * r);
-      q = min(max(q, -127), 127);
-      xq[g * GROUP + e] = static_cast<int8_t>(q);
-    }
-    sx[g] = sxg;
-    xsum[g] = s;
-  }
-}
-
-// Pass A of q4k_matvec: one block.
-__global__ void quantize_row_kernel(const void* x, int x_bf16, int k, int8_t* xq,
-                                    float* sx, float* xsum) {
-  extern __shared__ float xs[];
-  for (int i = threadIdx.x; i < k; i += blockDim.x) xs[i] = load_x(x, x_bf16, i);
-  __syncthreads();
-  quantize_groups(xs, k, xq, sx, xsum);
-}
 
 // Pass A of q4k_matvec_normed: rms_norm(x)*w with the bf16 round-trip of
 // the unfused path (rms_norm output is bf16), then the group quantization.
@@ -109,15 +66,6 @@ __global__ void norm_quantize_row_kernel(const void* x, int x_bf16, const float*
   }
   __syncthreads();
   quantize_groups(xs, k, xq, sx, xsum);
-}
-
-// Signed int4 nibbles of 4 bytes dotted with 4 int8 activations, for the
-// low (even channel) and high (odd channel) nibbles.
-__device__ __forceinline__ void dot4(uint32_t w, int x, int& lo, int& hi) {
-  const uint32_t l = __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-  const uint32_t h = __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-  lo = __dp4a(static_cast<int>(l), x, lo);
-  hi = __dp4a(static_cast<int>(h), x, hi);
 }
 
 // Pass B: one warp per packed row (channel pair), grid-stride over rows.
@@ -162,19 +110,10 @@ q4k_matvec_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
       dot4(w1.z, static_cast<int>(x1.z), d0, d1);
       dot4(w1.w, static_cast<int>(x1.w), d0, d1);
 
-      const size_t gi = static_cast<size_t>(g) * n + c;
-      const char2 sub = *reinterpret_cast<const char2*>(sub_t + gi);
-      const char2 mn = *reinterpret_cast<const char2*>(min_t + gi);
-      const size_t srow = static_cast<size_t>(2 * (g >> 3)) * n + c;
-      const float2 dv = *reinterpret_cast<const float2*>(dd_t + srow);
-      const float2 mv = *reinterpret_cast<const float2*>(dd_t + srow + n);
-      const float sc0 = static_cast<float>(sub.x) * dv.x;
-      const float sc1 = static_cast<float>(sub.y) * dv.y;
-      const float off0 = 8.f * sc0 - static_cast<float>(mn.x) * mv.x;
-      const float off1 = 8.f * sc1 - static_cast<float>(mn.y) * mv.y;
+      const PairScales ps = pair_scales(sub_t, min_t, dd_t, n, g, c);
       const float sxg = sx_s[g], xsg = xsum_s[g];
-      acc0 += static_cast<float>(d0) * sc0 * sxg + xsg * off0;
-      acc1 += static_cast<float>(d1) * sc1 * sxg + xsg * off1;
+      acc0 += static_cast<float>(d0) * ps.sc0 * sxg + xsg * ps.off0;
+      acc1 += static_cast<float>(d1) * ps.sc1 * sxg + xsg * ps.off1;
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
@@ -209,8 +148,8 @@ extern "C" int q4k_matvec_launch(const void* x, int x_bf16, int8_t* xq, float* s
                                  float* xsum, const uint8_t* packed, const int8_t* sub_t,
                                  const int8_t* min_t, const float* dd_t, void* out,
                                  int out_bf16, int n, int k, cudaStream_t stream) {
-  quantize_row_kernel<<<1, QUANT_THREADS, sizeof(float) * k, stream>>>(x, x_bf16, k, xq, sx,
-                                                                        xsum);
+  quantize_rows_kernel<<<1, QUANT_THREADS, sizeof(float) * k, stream>>>(x, x_bf16, k, xq, sx,
+                                                                         xsum);
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   return launch_matvec(xq, sx, xsum, packed, sub_t, min_t, dd_t, out, out_bf16, n, k, stream);

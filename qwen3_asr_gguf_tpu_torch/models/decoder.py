@@ -9,7 +9,10 @@ activations keep the embedding dtype (bf16 for the quantized engines).
 Parameters are a plain dict: {"embed": [V, D], "layers": [per-layer dict,
 ...], "final_norm": [D], "lm_head": weight}; a layer weight is a dense
 [N, K] tensor or a quantized container (`ops.qtensor.matmul` dispatches).
-The KV cache is {"k": [L x [S, Hkv, hd]], "v": [...]}, updated in place.
+The KV cache is {"k": [L x [S, Hkv, hd]], "v": [...]}, updated in place; an
+int8 cache adds f32 per-(slot, head) scales {"k_s": [L x [S, Hkv]], "v_s"}.
+The batched serving step (`forward_step_rows`) takes the same layout with a
+leading row axis: [B, S, Hkv, hd] and [B, S, Hkv].
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 
 from qwen3_asr_gguf_tpu.models.configs import TextDecoderConfig
 
+from ..ops import attn as attn_ops
 from ..ops.qtensor import matmul, matmul_normed
 
 Params = dict[str, Any]
@@ -104,13 +108,55 @@ def init_shapes(cfg: TextDecoderConfig) -> dict:
 
 
 def init_cache(cfg: TextDecoderConfig, max_len: int, dtype=torch.bfloat16,
-               device="cpu") -> dict[str, list]:
-    """KV cache as per-layer tensors [max_len, H_kv, hd]."""
-    shape = (max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {
+               device="cpu", rows: int | None = None) -> dict[str, list]:
+    """KV cache as per-layer tensors [max_len, H_kv, hd], or [rows, max_len,
+    H_kv, hd] for the row-batched serving cache. `dtype=torch.int8` is the
+    quantized cache: int8 values with one f32 scale per (slot, head)."""
+    lead = () if rows is None else (rows,)
+    shape = (*lead, max_len, cfg.num_kv_heads, cfg.head_dim)
+    cache = {
         "k": [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_layers)],
         "v": [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_layers)],
     }
+    if dtype == torch.int8:
+        sshape = shape[:-1]
+        cache["k_s"] = [torch.zeros(sshape, device=device) for _ in range(cfg.num_layers)]
+        cache["v_s"] = [torch.zeros(sshape, device=device) for _ in range(cfg.num_layers)]
+    return cache
+
+
+def _quant_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., H, hd] -> (int8 values, f32 scale [..., H]); divides by the
+    scale and rounds half to even, as the JAX package does."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _dequant_kv(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * s[..., None]).to(dtype)
+
+
+def _write_cache(cache: dict, l: int, index, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write layer l's new K/V at `index` (a slot slice, or (rows, slots)
+    for the row-batched cache) in place, quantizing for an int8 cache."""
+    if cache["k"][l].dtype == torch.int8:
+        kq, ksc = _quant_kv(k)
+        vq, vsc = _quant_kv(v)
+        cache["k"][l][index], cache["k_s"][l][index] = kq, ksc
+        cache["v"][l][index], cache["v_s"][l][index] = vq, vsc
+    else:
+        cache["k"][l][index] = k.to(cache["k"][l].dtype)
+        cache["v"][l][index] = v.to(cache["v"][l].dtype)
+
+
+def _read_cache_window(cache: dict, l: int, win: int, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layer l's first `win` cache slots as dense (k, v), dequantizing int8."""
+    if cache["k"][l].dtype == torch.int8:
+        return (_dequant_kv(cache["k"][l][:win], cache["k_s"][l][:win], dtype),
+                _dequant_kv(cache["v"][l][:win], cache["v_s"][l][:win], dtype))
+    return cache["k"][l][:win].to(dtype), cache["v"][l][:win].to(dtype)
 
 
 # --------------------------------------------------------------------------
@@ -191,8 +237,7 @@ def forward_prefill(params: Params, cfg: TextDecoderConfig, embd: torch.Tensor,
     for l, layer in enumerate(params["layers"]):
         h, k, v = _block(layer, cfg, h, cos, sin, lambda k: k, lambda v: v, mask, scale)
         if cache is not None:
-            cache["k"][l][:t] = k.to(cache["k"][l].dtype)
-            cache["v"][l][:t] = v.to(cache["v"][l].dtype)
+            _write_cache(cache, l, slice(0, t), k, v)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
 
 
@@ -215,16 +260,14 @@ def forward_prefill_at(params: Params, cfg: TextDecoderConfig, embd: torch.Tenso
     mask = torch.cat([prefix_mask, causal], dim=1)  # [t, prefix_window + t]
     h = embd
     for l, layer in enumerate(params["layers"]):
-        k_pre = cache["k"][l][:prefix_window]
-        v_pre = cache["v"][l][:prefix_window]
+        k_pre, v_pre = _read_cache_window(cache, l, prefix_window, embd.dtype)
         h, k, v = _block(
             layer, cfg, h, cos, sin,
             lambda k: torch.cat([k_pre.to(k.dtype), k]),
             lambda v: torch.cat([v_pre.to(v.dtype), v]),
             mask, scale,
         )
-        cache["k"][l][start: start + t] = k.to(cache["k"][l].dtype)
-        cache["v"][l][start: start + t] = v.to(cache["v"][l].dtype)
+        _write_cache(cache, l, slice(start, start + t), k, v)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
 
 
@@ -244,13 +287,78 @@ def forward_step_layers(layer_list: list[Params], final_norm: torch.Tensor,
     eps = cfg.rms_norm_eps
     for l, layer in enumerate(layer_list):
         q, k, v = _layer_qkv(layer, cfg, h, cos, sin, pre_norm=(layer["attn_norm"], eps))
-        k_c, v_c = cache["k"][l], cache["v"][l]
-        k_c[pos] = k[0].to(k_c.dtype)
-        v_c[pos] = v[0].to(v_c.dtype)
-        attn = _gqa_attention(q, k_c[:win].to(k.dtype), v_c[:win].to(k.dtype), valid, scale)
+        _write_cache(cache, l, pos, k[0], v[0])
+        k_win, v_win = _read_cache_window(cache, l, win, k.dtype)
+        attn = _gqa_attention(q, k_win, v_win, valid, scale)
         h = h + matmul(attn.reshape(1, -1), layer["o_proj"])
         h = h + _mlp(layer, h, pre_norm=(layer["mlp_norm"], eps))
     return rms_norm(h, final_norm, eps)[0], cache
+
+
+def _gqa_attention_rows(q, kw, vw, mask, scale):
+    """Per-row decode attention: q [B, Hq, d], kw/vw [B, S, Hkv, d],
+    mask [B, S] -> [B, Hq, d]. Products of the operands' dtype, summed in f32."""
+    b, hq, d = q.shape
+    hkv = kw.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, kw.float()) * scale
+    scores = scores.masked_fill(~mask[:, None, None, :], MASKED)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs.to(vw.dtype).float(), vw.float())
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _gqa_attention_rows_q8(q, kw, ks, vw, vs, mask, scale):
+    """int8-KV twin of `_gqa_attention_rows`: kw/vw int8 [B, S, Hkv, d] with
+    f32 per-(slot, head) scales ks/vs [B, S, Hkv] folded into the dots
+    (score * ks, p * vs rounded to q's dtype before the PV dot). The plain
+    version of `ops.attn.gqa_rows_q8_attention`."""
+    b, hq, d = q.shape
+    hkv = kw.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, kw.to(q.dtype).float())
+    scores = scores * (ks.permute(0, 2, 1)[:, :, None, :] * scale)
+    scores = scores.masked_fill(~mask[:, None, None, :], MASKED)
+    probs = torch.softmax(scores, dim=-1)
+    pv = (probs * vs.permute(0, 2, 1)[:, :, None, :]).to(q.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", pv.float(), vw.to(q.dtype).float())
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def forward_step_rows(layer_list: list[Params], final_norm: torch.Tensor,
+                      cfg: TextDecoderConfig, embd: torch.Tensor, caches: dict,
+                      poss: torch.Tensor, *, attn_window: int | None = None):
+    """Batched decode step, one token per row (embd [B, D], poss [B] int64
+    on the device, each a valid slot): activations stay [B, K], so a
+    quantized weight streams once per step for all rows (`ops.q4k.
+    q4k_matmul_rows` at B % 8 == 0). Each layer writes its K/V at the rows'
+    positions in place before attending to their first `attn_window` slots
+    (slot <= pos). An int8 cache attends through `ops.attn.
+    gqa_rows_q8_attention`: on the card it launches kernel 5 or raises (the
+    window must pass `rows_q8_supported`); on the CPU it runs its plain
+    version. Returns (hidden [B, D], caches)."""
+    b = embd.shape[0]
+    s_max = caches["k"][0].shape[1]
+    win = s_max if attn_window is None else min(attn_window, s_max)
+    scale = cfg.head_dim ** -0.5
+    cos, sin = rope_cos_sin(poss, cfg.head_dim, cfg.rope_theta)  # [B, hd]
+    rows = torch.arange(b, device=embd.device)
+    mask = torch.arange(win, device=embd.device)[None, :] <= poss[:, None]
+    int8_kv = caches["k"][0].dtype == torch.int8
+    h = embd
+    eps = cfg.rms_norm_eps
+    for l, layer in enumerate(layer_list):
+        q, k, v = _layer_qkv(layer, cfg, rms_norm(h, layer["attn_norm"], eps), cos, sin)
+        _write_cache(caches, l, (rows, poss), k, v)
+        k_c, v_c = caches["k"][l], caches["v"][l]
+        if int8_kv:
+            attn = attn_ops.gqa_rows_q8_attention(
+                q, k_c, caches["k_s"][l], v_c, caches["v_s"][l], poss, scale, win)
+        else:
+            attn = _gqa_attention_rows(q, k_c[:, :win], v_c[:, :win], mask, scale)
+        h = h + matmul(attn.reshape(b, -1), layer["o_proj"])
+        h = h + _mlp(layer, rms_norm(h, layer["mlp_norm"], eps))
+    return rms_norm(h, final_norm, eps), caches
 
 
 def lm_logits(params: Params, hidden: torch.Tensor, n_out: int | None = None) -> torch.Tensor:

@@ -85,11 +85,14 @@ def _layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 
 
 
 def conv_frontend(params: Params, cfg: AudioEncoderConfig, mel: torch.Tensor) -> torch.Tensor:
-    """mel [n_mels, T] (T % n_window == 0) -> [T//n_window * 13, d_model];
-    every 1-second chunk convolves in one batch and gets positions 0..12."""
-    n_mels, t = mel.shape
+    """mel [..., n_mels, T] (T % n_window == 0) -> [..., T//n_window * 13,
+    d_model]; every 1-second chunk (of every signal of a leading batch axis)
+    convolves in one batch and gets positions 0..12."""
+    lead = mel.shape[:-2]
+    n_mels, t = mel.shape[-2:]
     n_chunks = t // cfg.n_window
-    x = mel.reshape(n_mels, n_chunks, cfg.n_window).permute(1, 0, 2)[:, None]  # [N, 1, mels, win]
+    x = mel.reshape(-1, n_mels, n_chunks, cfg.n_window).permute(0, 2, 1, 3)
+    x = x.reshape(-1, 1, n_mels, cfg.n_window)  # [B*N, 1, mels, win]
     for i in (1, 2, 3):
         w = params[f"conv{i}_w"]
         b = params[f"conv{i}_b"]
@@ -99,7 +102,7 @@ def conv_frontend(params: Params, cfg: AudioEncoderConfig, mel: torch.Tensor) ->
     x = x.permute(0, 3, 1, 2).reshape(n, tw, c * f)
     x = matmul(x, params["conv_out"])  # [N, tw, d_model]
     x = x + params["pos_embed"][None, :tw, :].to(x.dtype)
-    return x.reshape(n * tw, -1)
+    return x.reshape(*lead, n_chunks * tw, -1)
 
 
 def _mha(layer: Params, cfg: AudioEncoderConfig, x: torch.Tensor, key_mask=None) -> torch.Tensor:
@@ -121,26 +124,31 @@ def _mha(layer: Params, cfg: AudioEncoderConfig, x: torch.Tensor, key_mask=None)
 
 
 def backend_transformer(params: Params, cfg: AudioEncoderConfig, hidden: torch.Tensor,
-                        valid_tokens: int | None = None) -> torch.Tensor:
-    """hidden [T, d_model] -> [T, output_dim]. `valid_tokens` masks later
-    keys in full mode so a bucket-padded call equals the unpadded one on the
-    valid prefix."""
-    t = hidden.shape[0]
+                        valid_tokens=None) -> torch.Tensor:
+    """hidden [..., T, d_model] -> [..., T, output_dim]; a leading batch
+    axis holds same-length inputs. `valid_tokens` (an int, or one per input)
+    masks later keys in full mode so a bucket-padded call equals the
+    unpadded one on the valid prefix."""
+    lead = hidden.shape[:-2]
+    t, d_model = hidden.shape[-2:]
+    hidden = hidden.reshape(-1, t, d_model)
+    n_in = hidden.shape[0]
     key_mask = None
-    pad = 0
     if cfg.attention_mode == "windowed":
         # our n_window (conv-chunk frames, 100) equals the reference
         # checkpoints' 2*n_window (they ship n_window=50): a window is
         # n_window_infer frames = 13 * (n_window_infer // n_window) tokens
         win = cfg.tokens_per_window * (cfg.n_window_infer // cfg.n_window)
         pad = (-t) % win
-        x = F.pad(hidden, (0, 0, 0, pad)).reshape(-1, win, hidden.shape[1])
+        x = F.pad(hidden, (0, 0, 0, pad)).reshape(-1, win, d_model)
         if pad:  # the remainder window must not attend to its zero tail
-            key_mask = torch.arange(x.shape[0] * win, device=hidden.device).reshape(-1, win) < t
+            key_mask = (torch.arange(t + pad, device=hidden.device) < t).reshape(-1, win)
+            key_mask = key_mask.repeat(n_in, 1)
     else:
-        x = hidden[None]
+        x = hidden
         if valid_tokens is not None:
-            key_mask = torch.arange(t, device=hidden.device) < valid_tokens
+            vt = torch.as_tensor(valid_tokens, device=hidden.device).reshape(-1, 1)
+            key_mask = torch.arange(t, device=hidden.device)[None, :] < vt
 
     for layer in params["layers"]:
         # f32 biases promote the residual branch; cast back to the stream dtype
@@ -150,7 +158,7 @@ def backend_transformer(params: Params, cfg: AudioEncoderConfig, hidden: torch.T
         y = _gelu(matmul(y, layer["fc1_w"]) + layer["fc1_b"])
         y = matmul(y, layer["fc2_w"]) + layer["fc2_b"]
         x = x + y.to(x.dtype)
-    x = x.reshape(-1, hidden.shape[1])[:t]
+    x = x.reshape(n_in, -1, d_model)[:, :t].reshape(*lead, t, d_model)
 
     x = _layer_norm(x, params["ln_post_w"], params["ln_post_b"])
     x = _gelu(matmul(x, params["proj1_w"]) + params["proj1_b"])

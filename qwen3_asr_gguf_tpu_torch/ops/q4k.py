@@ -1,5 +1,6 @@
-"""q4_k int4-stream matvec: weight container, host packing, plain versions
-and the wrappers of the CUDA kernels in `csrc/q4k_matvec.cu`.
+"""q4_k int4-stream matvec and multi-row matmul: weight container, host
+packing, plain versions and the wrappers of the CUDA kernels in
+`csrc/q4k_matvec.cu` and `csrc/q4k_matmul_rows.cu`.
 
 Counterpart of `qwen3_asr_gguf_tpu/ops/pallas_q4k.py`, with its weight
 layout (so weights carry across unchanged):
@@ -13,7 +14,9 @@ layout (so weights carry across unchanged):
 scale[g] = sub[g] * d[g//8], minv[g] = min[g] * dmin[g//8], and a weight is
 q*scale + (8*scale - minv). The matvec quantizes the activation row to int8
 per 32-group (x * reciprocal(sx), round half to even), takes exact int32
-group dots and applies the scales per group, as the TPU kernel does.
+group dots and applies the scales per group, as the TPU kernel does. The
+multi-row matmul (serving's batched decode step) does the same for each of
+T rows (T % 8 == 0, T <= 64), streaming each weight once per 8 rows.
 
 A wrapper runs its plain PyTorch version only for a tensor on the CPU. For a
 CUDA tensor it launches the kernel or raises.
@@ -32,6 +35,8 @@ from . import _build
 
 GROUP = 32  # q4_k quant group along K
 BN = 512  # channel tile of the TPU kernel; `supported` keeps its conditions
+T_TILE = 8  # activation rows per weight pass of the multi-row matmul
+MAX_K = 12288  # the kernels stage a quantized activation row in shared memory
 
 
 def pick_subk(k: int) -> int | None:
@@ -158,13 +163,16 @@ def dequant_mxu(w: Q4KWeight, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def quantize_act_ref(xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """f32 [K] -> (xq int8 [K], sx f32 [G], xsum f32 [G]): per-32-group int8
-    quantization with x * reciprocal(sx), round half to even."""
+    """f32 [..., K] -> (xq int8 [..., K], sx f32 [..., G], xsum f32 [..., G]):
+    per-32-group int8 quantization with x * reciprocal(sx), round half to
+    even."""
+    lead = xf.shape[:-1]
     xg = xf.reshape(-1, GROUP)
     amax = xg.abs().amax(dim=1)
     sx = torch.clamp(amax, min=1e-10) * (1.0 / 127.0)
     xq = torch.clamp(torch.round(xg * torch.reciprocal(sx)[:, None]), -127, 127)
-    return xq.to(torch.int8).reshape(-1), sx, xg.sum(dim=1)
+    return (xq.to(torch.int8).reshape(*lead, -1), sx.reshape(*lead, -1),
+            xg.sum(dim=1).reshape(*lead, -1))
 
 
 def _matvec_f32(xf: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
@@ -187,6 +195,31 @@ def q4k_matvec_ref(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
     n, k = w.shape
     out = _matvec_f32(x.reshape(k).float(), w)
     return out.reshape(*x.shape[:-1], n).to(x.dtype)
+
+
+def _matmul_rows_f32(xf: torch.Tensor, w: Q4KWeight, chunk: int = 16384) -> torch.Tensor:
+    """f32 [T, K] rows -> f32 [T, N]: each row exactly as `_matvec_f32`,
+    in channel chunks to bound the f32 unpack of the weight."""
+    n, k = w.shape
+    g = k // GROUP
+    t = xf.shape[0]
+    xq, sx, xsum = quantize_act_ref(xf)
+    xqg = xq.float().reshape(t, g, GROUP)
+    scale, minv = _expand_scales(w)
+    offs = 8.0 * scale - minv
+    out = []
+    for c0 in range(0, n, chunk):
+        c1 = min(n, c0 + chunk)
+        ints = _signed_nibbles(w.packed[c0 // 2: c1 // 2]).float().reshape(c1 - c0, g, GROUP)
+        acc = torch.einsum("ngk,tgk->tng", ints, xqg)  # exact integer group dots
+        contrib = acc * scale[None, c0:c1] * sx[:, None, :] + xsum[:, None, :] * offs[None, c0:c1]
+        out.append(contrib.sum(dim=2))
+    return torch.cat(out, dim=1)
+
+
+def q4k_matmul_rows_ref(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
+    """Plain version of `q4k_matmul_rows`: x [T, K] -> [T, N] in x's dtype."""
+    return _matmul_rows_f32(x.float(), w).to(x.dtype)
 
 
 def q4k_matvec_normed_ref(x: torch.Tensor, w: Q4KWeight, norm_w: torch.Tensor,
@@ -213,6 +246,17 @@ def supported(x_shape: tuple[int, ...], w: Q4KWeight) -> bool:
     return t == 1 and pick_subk(k) is not None and n % BN == 0 and w.packed.ndim == 2
 
 
+def supported_rows(x_shape: tuple[int, ...], w: Q4KWeight) -> bool:
+    """Multi-row matmul: 2-D [T, K] with T a T_TILE multiple up to 64
+    (pallas_q4k.supported_rows)."""
+    if len(x_shape) != 2:
+        return False
+    t = x_shape[0]
+    n, k = w.shape
+    return (t > 1 and t % T_TILE == 0 and t <= 64 and pick_subk(k) is not None
+            and n % BN == 0 and w.packed.ndim == 2)
+
+
 def supported_normed(x_shape: tuple[int, ...], w: Q4KWeight) -> bool:
     """Norm fusion needs the whole row in one K step (K in {512,1024,2048})."""
     n, k = w.shape
@@ -224,13 +268,14 @@ def supported_normed(x_shape: tuple[int, ...], w: Q4KWeight) -> bool:
 # --------------------------------------------------------------------------
 
 
-def _check_cuda_args(x: torch.Tensor, w: Q4KWeight, what: str) -> None:
+def _check_cuda_args(x: torch.Tensor, w: Q4KWeight, what: str, rows: int = 1) -> None:
     n, k = w.shape
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: x must be f32 or bf16, got {x.dtype}")
-    if x.numel() != k or not x.is_contiguous():
-        raise ValueError(f"{what}: x must be one contiguous row of {k}, got {tuple(x.shape)}")
-    if n % BN or k % 512 or k > 12288:
+    if x.numel() != rows * k or not x.is_contiguous():
+        raise ValueError(f"{what}: x must be {rows} contiguous row(s) of {k}, "
+                         f"got {tuple(x.shape)}")
+    if n % BN or k % 512 or k > MAX_K:
         raise ValueError(f"{what}: unsupported weight shape {(n, k)}")
     for name, t, dt in (("packed", w.packed, torch.uint8), ("sub_t", w.sub_t, torch.int8),
                         ("min_t", w.min_t, torch.int8), ("dd_t", w.dd_t, torch.float32)):
@@ -241,11 +286,11 @@ def _check_cuda_args(x: torch.Tensor, w: Q4KWeight, what: str) -> None:
         raise ValueError(f"{what}: weight planes are not aligned for vector loads")
 
 
-def _scratch(x: torch.Tensor, k: int):
+def _scratch(x: torch.Tensor, k: int, rows: int = 1):
     g = k // GROUP
-    return (torch.empty(k, dtype=torch.int8, device=x.device),
-            torch.empty(g, dtype=torch.float32, device=x.device),
-            torch.empty(g, dtype=torch.float32, device=x.device))
+    return (torch.empty(rows * k, dtype=torch.int8, device=x.device),
+            torch.empty(rows * g, dtype=torch.float32, device=x.device),
+            torch.empty(rows * g, dtype=torch.float32, device=x.device))
 
 
 def q4k_matvec(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
@@ -263,7 +308,7 @@ def q4k_matvec(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
         w.dd_t.data_ptr(), out.data_ptr(), int(out.dtype == torch.bfloat16), n, k, stream,
     )
     _build.check(rc, "q4k_matvec")
-    q4k_matvec.launches += 1
+    _build.count_launch(q4k_matvec)
     return out
 
 
@@ -290,9 +335,33 @@ def q4k_matvec_normed(x: torch.Tensor, w: Q4KWeight, norm_w: torch.Tensor,
         int(out.dtype == torch.bfloat16), n, k, stream,
     )
     _build.check(rc, "q4k_matvec_normed")
-    q4k_matvec_normed.launches += 1
+    _build.count_launch(q4k_matvec_normed)
+    return out
+
+
+def q4k_matmul_rows(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
+    """x [T, K] @ dequant(w).T -> [T, N] in x's dtype (T % 8 == 0, T <= 64):
+    each row as `q4k_matvec` computes it, one weight stream per 8 rows."""
+    if not x.is_cuda:
+        return q4k_matmul_rows_ref(x, w)
+    if not supported_rows(tuple(x.shape), w):
+        raise ValueError(f"q4k_matmul_rows: unsupported x {tuple(x.shape)} for weight {w.shape}")
+    t = x.shape[0]
+    _check_cuda_args(x, w, "q4k_matmul_rows", rows=t)
+    n, k = w.shape
+    xq, sx, xsum = _scratch(x, k, rows=t)
+    out = torch.empty(t, n, dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _build.lib().q4k_matmul_rows_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), xq.data_ptr(), sx.data_ptr(),
+        xsum.data_ptr(), w.packed.data_ptr(), w.sub_t.data_ptr(), w.min_t.data_ptr(),
+        w.dd_t.data_ptr(), out.data_ptr(), int(out.dtype == torch.bfloat16), t, n, k, stream,
+    )
+    _build.check(rc, "q4k_matmul_rows")
+    _build.count_launch(q4k_matmul_rows)
     return out
 
 
 q4k_matvec.launches = 0
 q4k_matvec_normed.launches = 0
+q4k_matmul_rows.launches = 0

@@ -2,9 +2,10 @@
 `qwen3_asr_gguf_tpu/ops/qtensor.py`).
 
 Convention: weights are [out_features, in_features] (GGUF row order) and
-``matmul(x, w) == x @ dequant(w).T``. A `Q4KWeight` row goes through the q4_k
-matvec kernel where `supported`; everything else is a dequant followed by a
-dense matmul that accumulates in f32.
+``matmul(x, w) == x @ dequant(w).T``. A `Q4KWeight` takes one row through the
+q4_k matvec kernel where `supported`, and 8 to 64 rows (a multiple of 8)
+through the multi-row kernel where `supported_rows`; everything else is a
+dequant followed by a dense matmul that accumulates in f32.
 """
 
 from __future__ import annotations
@@ -74,6 +75,8 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, q4k.Q4KWeight):
         if q4k.supported(tuple(x.shape), w):
             return q4k.q4k_matvec(x, w)  # decode matvec: int4 stream, exact q4_k
+        if q4k.supported_rows(tuple(x.shape), w):
+            return q4k.q4k_matmul_rows(x, w)  # batched decode rows (serving)
         return dense_matmul(x, q4k.dequant_mxu(w, dtype=x.dtype))
     if isinstance(w, Q4Weight):
         return dense_matmul(x, dequant_q4(w, dtype=x.dtype))

@@ -5,7 +5,9 @@ transformer backend on the engine's device.
 Audio whose length is whole seconds and whole conv windows (the engine's
 zero-padded chunks) runs at its own length with no key mask; any other
 length is reflect-padded into a 5-second mel bucket and its padding keys are
-masked, so the valid rows equal the unpadded encode.
+masked, so the valid rows equal the unpadded encode. Serving admission
+encodes audios of one `batch_key` as one batch (`encode_batch_async`).
+PyTorch queues device work asynchronously, so `encode_async` is `encode`.
 """
 
 from __future__ import annotations
@@ -62,6 +64,40 @@ class EncoderRunner:
         hidden = enc.conv_frontend(self.params, self.cfg, mel)
         valid = enc.get_feat_extract_output_lengths(frames, self.cfg.n_window)
         return self._backend(hidden, valid_tokens=valid)
+
+    encode_async = encode
+
+    def batch_key(self, audio) -> tuple:
+        """Grouping key for `encode_batch_async`: audios with equal keys take
+        the same path at the same shapes."""
+        n = int(audio.shape[-1])
+        frames = max(n // HOP, 1)
+        if n % SAMPLE_RATE == 0 and frames % self.cfg.n_window == 0:
+            return ("aligned", n)
+        return ("varlen", self.mel_bucket(frames))
+
+    def encode_batch_async(self, audios: list) -> list:
+        """Same-`batch_key` host audios as one batch -> per-audio
+        [t_padded, output_dim] (the first `valid_tokens(len)` rows of each
+        meaningful)."""
+        keys = {self.batch_key(a) for a in audios}
+        if len(keys) != 1:
+            raise ValueError(f"mixed encode batch keys: {keys}")
+        kind, _ = keys.pop()
+        if kind == "aligned":
+            ys = torch.from_numpy(np.stack([np.asarray(a, np.float32) for a in audios]))
+            hidden = enc.conv_frontend(self.params, self.cfg, self.frontend(ys.to(self.device)))
+            out = self._backend(hidden)
+        else:
+            frames = [max(int(a.shape[-1]) // HOP, 1) for a in audios]
+            bucket = self.mel_bucket(max(frames))
+            ys = np.stack([pad_signal_for_bucket(np.asarray(a, np.float32), bucket)
+                           for a in audios])
+            mel = self.frontend.padded(torch.from_numpy(ys).to(self.device), frames, bucket)
+            hidden = enc.conv_frontend(self.params, self.cfg, mel)
+            valids = [enc.get_feat_extract_output_lengths(f, self.cfg.n_window) for f in frames]
+            out = self._backend(hidden, valid_tokens=valids)
+        return list(out.unbind(0))
 
     def mel_bucket(self, frames: int) -> int:
         """Linear 5 s frame buckets up to 50 s, then doubling."""

@@ -14,9 +14,10 @@ Same semantics as the JAX engine's synchronous path:
 - rollback of the last `rollback_num` tokens of every non-final chunk, the
   repetition circuit breaker and its temperature-escalation retries.
 
-Precisions: "int4" (the q4_k decoder and int4 encoder) and "f32". Not
-ported yet (see ROADMAP.md): the forced aligner, the mesh, the int8 and
-half-precision weights and int8 KV. `pipelined_dispatch` runs this
+Precisions: "int4" (the q4_k decoder and int4 encoder) and "f32"; KV caches
+bf16, f32 or int8 (`kv_cache_dtype`; an f32 engine keeps f32 KV, as in the
+JAX package). Not ported yet (see ROADMAP.md): the forced aligner, the mesh,
+the int8 and half-precision weights. `pipelined_dispatch` runs this
 synchronous path, which gives the same tokens.
 """
 
@@ -42,6 +43,7 @@ from .generate import Generator
 
 SAMPLE_RATE = 16_000
 _PUNCT_NEWLINE = re.compile(r"([，。？！：,\.])")
+_KV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}
 
 
 @dataclasses.dataclass
@@ -62,7 +64,7 @@ class QwenASREngine:
         if config.precision not in ("int4", "f32"):
             raise NotImplementedError(f"precision {config.precision!r} is not ported yet")
         kv_name = "f32" if config.precision == "f32" else config.kv_cache_dtype
-        if kv_name not in ("bf16", "f32"):
+        if kv_name not in _KV_DTYPES:
             raise NotImplementedError(f"kv_cache_dtype {kv_name!r} is not ported yet")
         t_init = time.time()
         self.config = config
@@ -93,7 +95,7 @@ class QwenASREngine:
             n_ctx=config.n_ctx,
             eos_ids=thinker.eos_token_ids,
             block=config.decode_block,
-            cache_dtype={"bf16": torch.bfloat16, "f32": torch.float32}[kv_name],
+            cache_dtype=_KV_DTYPES[kv_name],
             dequant_prefill=config.precision == "int4",
             device=self.device,
         )

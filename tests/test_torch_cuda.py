@@ -9,6 +9,8 @@ Bound: max|kernel - plain| <= 1e-2 * max|plain| for bf16 outputs (one bf16
 rounding of differently ordered f32 sums, and at most a one-step flip of an
 int8 activation where the fused norm's rsqrt rounds differently), and
 1e-4 * max|plain| for f32 outputs of the unfused kernel (f32 sum order only).
+The multi-row matmul is held to the matvec kernel row by row (the same
+per-row math, f32 sums in another order): 1e-4 * max|matvec| on f32 outputs.
 """
 
 import numpy as np
@@ -16,7 +18,8 @@ import pytest
 import torch
 
 from qwen3_asr_gguf_tpu.formats import quants as q
-from qwen3_asr_gguf_tpu_torch.ops import q4k
+from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+from qwen3_asr_gguf_tpu_torch.ops import attn, q4k
 
 
 @pytest.fixture
@@ -76,3 +79,95 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
         q4k.q4k_matvec(_x(1024, torch.bfloat16, cuda), w.to("cpu"))
     with pytest.raises(TypeError):
         q4k.q4k_matvec(_x(1024, torch.float16, cuda), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [8, 16, 64])
+@pytest.mark.parametrize("n,k", [(2048, 2048), (2048, 6144), (4096, 512)])
+def test_matmul_rows_each_row_equals_matvec(cuda, t, n, k):
+    w = _weight(n, k, n + k + t, cuda)
+    x = torch.randn(t, k, generator=torch.Generator().manual_seed(t)).to(cuda)
+    before = q4k.q4k_matmul_rows.launches
+    got = q4k.q4k_matmul_rows(x, w)
+    assert q4k.q4k_matmul_rows.launches == before + 1
+    assert got.shape == (t, n) and got.dtype == torch.float32
+    rows = torch.cat([q4k.q4k_matvec(x[i:i + 1], w) for i in range(t)])
+    assert _rel_err(got, rows) <= 1e-4
+    assert _rel_err(q4k.q4k_matmul_rows(x.bfloat16(), w), q4k.q4k_matmul_rows_ref(
+        x.bfloat16(), w)) <= 1e-2
+
+
+def _q8_cache(b, s, hkv, d, seed, device):
+    rng = np.random.default_rng(seed)
+    k, ks = dec._quant_kv(torch.from_numpy(rng.standard_normal((b, s, hkv, d)).astype(np.float32)))
+    v, vs = dec._quant_kv(torch.from_numpy(rng.standard_normal((b, s, hkv, d)).astype(np.float32)))
+    return [t.to(device) for t in (k, ks, v, vs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("win", [256, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rows_q8_attention_vs_plain(cuda, win, dtype):
+    b, hq, hkv, d, s = 4, 16, 8, 128, 1024
+    k, ks, v, vs = _q8_cache(b, s, hkv, d, win, cuda)
+    q = (torch.randn(b, hq, d, generator=torch.Generator().manual_seed(win)) * 0.5).to(cuda, dtype)
+    # a row inside tile 0, one at a tile edge, one at win - 1, one mid-window
+    poss = torch.tensor([5, 255, win - 1, win // 2 + 3], device=cuda)
+    before = attn.gqa_rows_q8_attention.launches
+    got = attn.gqa_rows_q8_attention(q, k, ks, v, vs, poss, d ** -0.5, win)
+    assert attn.gqa_rows_q8_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = attn.gqa_rows_q8_attention_ref(q, k, ks, v, vs, poss, d ** -0.5, win)
+    assert _rel_err(got, want) <= (1e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_rows_wrappers_raise_instead_of_falling_back(cuda):
+    w = _weight(512, 1024, 7, cuda)
+    with pytest.raises(ValueError):  # T = 12 is not a multiple of 8
+        q4k.q4k_matmul_rows(torch.randn(12, 1024, device=cuda), w)
+    with pytest.raises(ValueError):  # CPU weight, CUDA activations
+        q4k.q4k_matmul_rows(torch.randn(8, 1024, device=cuda), w.to("cpu"))
+    k, ks, v, vs = _q8_cache(2, 512, 4, 128, 1, cuda)
+    q = torch.randn(2, 8, 128, device=cuda, dtype=torch.bfloat16)
+    poss = torch.tensor([3, 100], device=cuda)
+    with pytest.raises(ValueError):  # window not a multiple of 256
+        attn.gqa_rows_q8_attention(q, k, ks, v, vs, poss, 0.1, 384)
+    k64, ks64, v64, vs64 = _q8_cache(2, 512, 4, 64, 1, cuda)
+    with pytest.raises(ValueError):  # head_dim 64
+        attn.gqa_rows_q8_attention(q[..., :64].contiguous(), k64, ks64, v64, vs64, poss,
+                                   0.1, 256)
+    with pytest.raises(ValueError):  # a cache on the CPU
+        attn.gqa_rows_q8_attention(q, k.cpu(), ks, v, vs, poss, 0.1, 256)
+
+
+def _int8_rows_step(device, win):
+    """One int8-KV rows step (B = 8) of a 2-layer decoder at kernel shapes."""
+    from qwen3_asr_gguf_tpu.models.configs import TextDecoderConfig
+    from qwen3_asr_gguf_tpu_torch.export.synthetic import np_init_like
+    from qwen3_asr_gguf_tpu_torch.models import params as P
+
+    cfg = TextDecoderConfig(vocab_size=512, hidden_size=512, num_layers=2, num_heads=4,
+                            num_kv_heads=2, head_dim=128, intermediate_size=1024)
+    params = P.fuse_layer_weights(
+        P.from_jax_params(np_init_like(dec.init_shapes(cfg), 0), device=device))
+    b = 8
+    caches = dec.init_cache(cfg, 512, torch.int8, device=device, rows=b)
+    embd = torch.randn(b, cfg.hidden_size, generator=torch.Generator().manual_seed(9)).to(device)
+    poss = torch.arange(b, device=device) * 40
+    h, _ = dec.forward_step_rows(params["layers"], params["final_norm"], cfg, embd, caches,
+                                 poss, attn_window=win)
+    return cfg, h
+
+
+@pytest.mark.cuda
+def test_int8_rows_step_launches_the_kernel_or_raises(cuda):
+    """On the card an int8-KV rows step attends through the rows kernel at
+    every layer, and raises on a window the kernel does not take (384 is not
+    whole 256-slot tiles) instead of running the plain attention."""
+    before = attn.gqa_rows_q8_attention.launches
+    cfg, h = _int8_rows_step(cuda, 512)
+    assert attn.gqa_rows_q8_attention.launches == before + cfg.num_layers
+    assert bool(torch.isfinite(h).all())
+    with pytest.raises(ValueError):
+        _int8_rows_step(cuda, 384)

@@ -159,8 +159,7 @@ def test_reproduces_golden_engine_transcribe(golden_engine):
 
 
 def test_not_ported_options_raise(kernel_dir):
-    for kw in ({"enable_aligner": True}, {"mesh_shape": {"model": 2}},
-               {"kv_cache_dtype": "int8"}):
+    for kw in ({"enable_aligner": True}, {"mesh_shape": {"model": 2}}):
         with pytest.raises(NotImplementedError):
             QwenASREngine(_config(kernel_dir, "qwen3_asr_llm.q4_k.gguf", "int4", **kw),
                           device="cpu")

@@ -49,3 +49,33 @@ def test_greedy_equals_jax():
         gen = torch.Generator().manual_seed(0)
         got = int(ts.sample(torch.from_numpy(logits), gen, 0.0))
         assert got == int(js.sample(jnp.asarray(logits), None, 0.0, greedy=True))
+
+
+def test_sample_rows_per_row_chain_and_latches():
+    """The batched per-row sampler: each row draws from the JAX chain at
+    its own temperature; greedy rows take the JAX argmax; a row already
+    done keeps its token and emits -1; sampling an EOS latches done."""
+    temps = [0.4, 2.0, 0.0, 1.0]
+    rows = np.stack([_logits(40 + i) for i in range(4)])
+    rows[2, 7] = rows[2].max() + 1.0  # the greedy row's argmax
+    x = torch.from_numpy(rows)
+    t = torch.tensor([max(v, 1e-6) for v in temps])
+    greedy = torch.tensor([v <= 0 for v in temps])
+    fed = torch.tensor([11, 12, 13, 14])
+    eos = torch.tensor([7, 999])
+    gen = torch.Generator().manual_seed(0)
+    draws = []
+    for _ in range(DRAWS // 4):
+        nxt, dones, emitted = ts.sample_rows(x, gen, t, greedy, torch.tensor([0, 0, 0, 1]).bool(),
+                                            fed, eos)
+        assert emitted.tolist() == [11, 12, 13, -1] and int(nxt[3]) == 14  # row 3 is done
+        assert int(nxt[2]) == 7 and bool(dones[2]) and bool(dones[3])  # greedy hit an EOS
+        assert bool(dones[0]) == (int(nxt[0]) in (7, 999))
+        draws.append(nxt.tolist())
+    draws = np.array(draws)
+    for r in (0, 1):
+        want = _jax_distribution(rows[r], temps[r], 1.0)
+        assert set(draws[:, r].tolist()) <= set(want)
+        counts = np.bincount(draws[:, r], minlength=rows.shape[1]) / len(draws)
+        assert max(abs(counts[tok] - p) for tok, p in want.items()) < 0.05
+    assert int(nxt[2]) == int(js.sample(jnp.asarray(rows[2]), None, 0.0, greedy=True))
