@@ -11,15 +11,26 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
 3. each kernel against its plain PyTorch version on the card at the five
    decode shapes of Qwen3-ASR-1.7B (o_proj, down_proj, lm_head; qkv and
    gate_up with the fused rms_norm), with the stated bound, and both timed
-   (CUDA events, median of 50 launches, L2 flushed before each);
-4. builds the shared native codec (when g++ is present) and a random-weight
-   qwen3-asr-1.7b int4 checkpoint in .bench_cache/torch/;
+   (CUDA events, median of 50 launches, L2 flushed before each), beside one
+   torch.matmul on the dequantized bf16 weight and the least time the card
+   could take (bytes over its memory rate, operations over its peak rate);
+   the single-token decode attention the same way over a 2048-slot bf16
+   cache (windows 256, 1024, 2048; an f32 cache too), beside one
+   scaled_dot_product_attention call;
+4. builds the native codec (when g++ is present) and random-weight
+   qwen3-asr-1.7b and qwen3-forced-aligner-0.6b q4_k checkpoints in
+   .bench_cache/torch/;
 5. QwenASREngine at the bench headline settings (int4, bf16 KV, 40 s chunks,
-   decode_block = max_new_tokens = 96, KV prefix reuse, no aligner) on a
-   50.2 s synthetic clip: one warm-up pass, then temperature 0.4 and 0,
-   each with the kernels' launch counts of that run;
+   decode_block = max_new_tokens = 96, KV prefix reuse, the 0.6B forced
+   aligner at int8) on a 50.2 s synthetic clip: one warm-up pass, then
+   temperature 0.4 and 0, each with the kernels' launch counts of that run
+   and the checks on the returned alignment; then, for comparison inside
+   this run only, the same call with the aligner off and with the plain
+   decode attention;
 6. one full-width decode step through the kernels against the same step on
-   dense dequantized weights (cosine bound), and finite encoder output;
+   dense dequantized weights with the plain attention (cosine bound), finite
+   encoder output, and the aligner's sparse logits on the card against an
+   f32 CPU runner of the same checkpoint (cosine bound);
 7. the multi-row q4_k matmul against its plain version and, row by row,
    against the matvec kernel, at T = 8 (the serving batch) and T = 64, and
    the int8-KV rows attention against its plain version at B = 8 over a
@@ -62,18 +73,34 @@ STEP_COSINE_BOUND = 0.99  # int8-activation kernel path vs dense bf16 weights
 ROWS_T = (8, 64)  # multi-row matmul batches: the serving default and the largest
 SERVE_CLIP_SECONDS = 10.0
 SERVE_REQUESTS = 16
+ALIGNER_PRESET = "qwen3-forced-aligner-0.6b"
+F32_KERNEL_BOUND = 1e-4  # the decode attention over an f32 cache (sums in another order)
+ATTN_HEADLINE_WIN = 1024  # the attention window whose time stands in the kernels line
 REPLACES = {
     "q4k_matvec": "qwen3_asr_gguf_tpu/ops/pallas_q4k.py:324",
     "q4k_matvec_normed": "qwen3_asr_gguf_tpu/ops/pallas_q4k.py:594",
     "q4k_matmul_rows": "qwen3_asr_gguf_tpu/ops/pallas_q4k.py:419",
+    "gqa_decode_attention": "qwen3_asr_gguf_tpu/ops/pallas_attn.py:94",
     "gqa_rows_q8_attention": "qwen3_asr_gguf_tpu/ops/pallas_attn.py:215",
 }
 SOURCES = {
     "q4k_matvec": "qwen3_asr_gguf_tpu_torch/csrc/q4k_matvec.cu",
     "q4k_matvec_normed": "qwen3_asr_gguf_tpu_torch/csrc/q4k_matvec.cu",
     "q4k_matmul_rows": "qwen3_asr_gguf_tpu_torch/csrc/q4k_matmul_rows.cu",
+    "gqa_decode_attention": "qwen3_asr_gguf_tpu_torch/csrc/attn_decode.cu",
     "gqa_rows_q8_attention": "qwen3_asr_gguf_tpu_torch/csrc/attn_rows_q8.cu",
 }
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense): the bound of a
+# kernel is the larger of its bytes over the memory rate and its operations
+# over the peak rate for their type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
+
+
+def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations")."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[kind]
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
 def emit(obj: dict) -> None:
@@ -150,6 +177,16 @@ def cold_weights(torch, dev, g, n, k):
     return nbytes, [random_weight() for _ in range(max(2, -(-(128 << 20) // nbytes)))]
 
 
+def dense_matmul_ms(torch, x, weights: list) -> float:
+    """One torch.matmul of x on each weight dequantized to bf16 (a yardstick:
+    the port calls it on no decode path), cold in L2 like the kernels."""
+    from qwen3_asr_gguf_tpu_torch.ops import q4k
+
+    n_copies = max(2, -(-(128 << 20) // (2 * weights[0].shape[0] * weights[0].shape[1])))
+    dense = [q4k.dequant_mxu(w, dtype=torch.bfloat16) for w in weights[:n_copies]]
+    return time_ms(lambda w: torch.matmul(x, w.T), dense, torch)
+
+
 def kernel_phase(torch, dev, cfg) -> list[dict]:
     from qwen3_asr_gguf_tpu_torch.ops import q4k
 
@@ -175,10 +212,17 @@ def kernel_phase(torch, dev, cfg) -> list[dict]:
         scale = want.abs().max().item()
         ok = err <= KERNEL_BOUND * scale
         ms = time_ms(kern, weights, torch)
+        # every input read once, the output written once; 2 N K int8 operations
+        least, by = bound_ms(nbytes + 2 * k + 2 * n + (4 * k if "normed" in name else 0),
+                             2 * n * k, "int8")
         row = {"phase": "kernel", "name": name, "shape": shape, "n": n, "k": k,
                "max_abs_err": err, "max_abs_plain": scale,
                "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain", "ok": ok,
                "ms": ms, "plain_ms": time_ms(plain, weights, torch),
+               "bound_ms": least, "bound_by": by,
+               "library_ms": dense_matmul_ms(torch, x, weights),
+               "library": "torch.matmul on the dequantized bf16 weight (4x the weight "
+                          "bytes; without the rms_norm)",
                "weight_mb": nbytes / 1e6, "gb_per_s": nbytes / (ms * 1e6)}
         emit(row)
         require(ok, f"{name}/{shape}: kernel disagrees with its plain version ({err} > bound)")
@@ -219,11 +263,15 @@ def rows_kernel_phase(torch, dev, cfg) -> list[dict]:
             row_err, _ = rel_check(torch, f"q4k_matmul_rows/{shape}/T={t} vs q4k_matvec", got,
                                    per_row)
             ms = time_ms(kern, weights, torch)
+            least, by = bound_ms(nbytes + 2 * t * (k + n), 2 * t * n * k, "int8")
             row = {"phase": "kernel_rows", "name": "q4k_matmul_rows", "shape": shape, "t": t,
                    "n": n, "k": k, "max_abs_err": err, "max_abs_plain": scale,
                    "max_abs_err_vs_matvec_rows": row_err,
                    "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain", "ok": True,
                    "ms": ms, "plain_ms": time_ms(plain, weights, torch),
+                   "bound_ms": least, "bound_by": by,
+                   "library_ms": dense_matmul_ms(torch, x, weights),
+                   "library": "torch.matmul on the dequantized bf16 weight (4x the weight bytes)",
                    "weight_mb": nbytes / 1e6, "gb_per_s": nbytes / (ms * 1e6)}
             emit(row)
             rows.append(row)
@@ -257,11 +305,82 @@ def attn_kernel_phase(torch, dev, cfg) -> list[dict]:
         plain = lambda c: attn.gqa_rows_q8_attention_ref(q, *c, poss, scale, win)  # noqa: E731
         err, mag = rel_check(torch, f"gqa_rows_q8_attention/win={win}", kern(caches[0]),
                              plain(caches[0]))
+        # each row's live slots (slot <= poss[i]) read once: int8 K and V
+        # rows and their two f32 scales per (slot, head); q and out in bf16
+        slots = int((poss + 1).sum())
+        least, by = bound_ms(slots * hkv * (2 * d + 8) + 2 * 2 * b * hq * d,
+                             4 * slots * hq * d, "bf16")
         row = {"phase": "kernel_attn", "name": "gqa_rows_q8_attention", "b": b, "hq": hq,
                "hkv": hkv, "d": d, "s": s_max, "win": win, "poss": poss.tolist(),
                "max_abs_err": err, "max_abs_plain": mag,
                "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain", "ok": True,
-               "ms": time_ms(kern, caches, torch), "plain_ms": time_ms(plain, caches, torch)}
+               "ms": time_ms(kern, caches, torch), "plain_ms": time_ms(plain, caches, torch),
+               "bound_ms": least, "bound_by": by, "library_ms": None}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def decode_attn_kernel_phase(torch, dev, cfg) -> list[dict]:
+    """gqa_decode_attention against its plain version at the 1.7B shape: one
+    query over a 2048-slot cache, bf16 (bound KERNEL_BOUND) and f32 (bound
+    F32_KERNEL_BOUND), at several positions per window; timed at pos =
+    win - 1 beside one scaled_dot_product_attention call on the [:win] views."""
+    from qwen3_asr_gguf_tpu_torch.ops import attn
+
+    s_max = 2048
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    scale = d ** -0.5
+    q32 = torch.randn((1, hq, d), generator=g, device=dev) * 0.5
+    # 16 caches of 8 MB each: a call finds its K/V cold in the 50 MB L2
+    caches = [tuple(torch.randn((s_max, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+                    for _ in "kv") for _ in range(16)]
+    caches32 = tuple(c.float() * (1 + 1e-3 * torch.rand(c.shape, generator=g, device=dev))
+                     for c in caches[0])
+    rows = []
+    for win in (256, 1024, 2048):
+        positions = sorted({0, 255, min(256, win - 1), win // 2 + 37, win - 1})
+        errs = {"bf16": (0.0, 0.0), "f32": (0.0, 0.0)}
+        for name, q, kv, bound in (("bf16", q32.to(torch.bfloat16), caches[0], KERNEL_BOUND),
+                                   ("f32", q32, caches32, F32_KERNEL_BOUND)):
+            for pos in positions:
+                got = attn.gqa_decode_attention(q, *kv, pos, scale, win).float()
+                want = attn.gqa_decode_attention_ref(q, *kv, pos, scale, win).float()
+                torch.cuda.synchronize()
+                what = f"gqa_decode_attention/{name}/win={win}/pos={pos}"
+                require(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+                err, mag = (got - want).abs().max().item(), want.abs().max().item()
+                require(err <= bound * mag, f"{what}: {err} > {bound} * {mag}")
+                errs[name] = max(errs[name], (err, mag))
+        q = q32.to(torch.bfloat16)
+        pos = win - 1
+        kern = lambda c: attn.gqa_decode_attention(q, *c, pos, scale, win)  # noqa: E731
+        plain = lambda c: attn.gqa_decode_attention_ref(q, *c, pos, scale, win)  # noqa: E731
+        q4 = q.permute(1, 0, 2)[None]  # [1, Hq, 1, d]
+
+        def sdpa(c):  # every slot of the window is live at pos = win - 1: no mask
+            k4, v4 = (t[:win].permute(1, 0, 2)[None] for t in c)
+            return torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, scale=scale, enable_gqa=True)
+
+        lib_err = (sdpa(caches[0])[0].permute(1, 0, 2).float()
+                   - plain(caches[0]).float()).abs().max().item()
+        # the live K and V rows (slot <= pos) read once, q read, out written
+        least, by = bound_ms(2 * (pos + 1) * hkv * d * 2 + 2 * 2 * hq * d,
+                             4 * (pos + 1) * hq * d, "bf16")
+        row = {"phase": "kernel_attn_decode", "name": "gqa_decode_attention", "hq": hq,
+               "hkv": hkv, "d": d, "s": s_max, "win": win, "positions": positions,
+               "max_abs_err": errs["bf16"][0], "max_abs_plain": errs["bf16"][1],
+               "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain", "ok": True,
+               "f32_max_abs_err": errs["f32"][0], "f32_max_abs_plain": errs["f32"][1],
+               "f32_bound": f"max_abs_err <= {F32_KERNEL_BOUND} * max_abs_plain",
+               "timed_pos": pos, "ms": time_ms(kern, caches, torch),
+               "plain_ms": time_ms(plain, caches, torch), "bound_ms": least, "bound_by": by,
+               "library_ms": time_ms(sdpa, caches, torch),
+               "library": "scaled_dot_product_attention(enable_gqa=True) on the [:win] views",
+               "library_max_abs_diff_vs_plain": lib_err}
         emit(row)
         rows.append(row)
     return rows
@@ -488,8 +607,16 @@ def ensure_checkpoint() -> Path:
     built = not all((out / f).exists() for f in files)
     if built:
         make_synthetic_checkpoint(str(out), PRESET, quant="q4_k", seed=0)
-    emit({"phase": "checkpoint", "preset": PRESET, "native_codec": native.available(),
-          "native_build_s": native_s, "built": built, "seconds": time.time() - t1})
+    t2 = time.time()
+    # the 0.6B forced aligner in the same directory, as the JAX bench lays it out
+    aligner_files = ("qwen3_aligner_encoder.safetensors", "qwen3_aligner_llm.q4_k.gguf")
+    aligner_built = not all((out / f).exists() for f in aligner_files)
+    if aligner_built:
+        make_synthetic_checkpoint(str(out), ALIGNER_PRESET, quant="q4_k", aligner=True, seed=1)
+    emit({"phase": "checkpoint", "preset": PRESET, "aligner_preset": ALIGNER_PRESET,
+          "native_codec": native.available(), "native_build_s": native_s, "built": built,
+          "seconds": t2 - t1, "aligner_built": aligner_built,
+          "aligner_seconds": time.time() - t2})
     return out
 
 
@@ -501,9 +628,11 @@ def synthetic_clip(seconds: float):
 
 
 def decode_step_check(torch, engine) -> None:
-    """One decode step through the int4 kernels vs the same step on dense
-    dequantized bf16 weights, from the same prefilled cache."""
+    """One decode step through the kernels (the int4 matvecs and the decode
+    attention) vs the same step on dense dequantized bf16 weights with the
+    plain attention, from the same prefilled cache."""
     from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+    from qwen3_asr_gguf_tpu_torch.ops import attn
     from qwen3_asr_gguf_tpu_torch.ops.q4k import dequant_mxu
 
     gen = engine.generator
@@ -516,18 +645,98 @@ def decode_step_check(torch, engine) -> None:
     dec.forward_prefill(dense, cfg, dec.embed_tokens(dense, ids), cache)
     twin = {k: [t.clone() for t in v] for k, v in cache.items()}
     embd = dense["embed"][int(ids[-1])]
+    before = attn.gqa_decode_attention.launches
     h_k, _ = dec.forward_step_layers(gen.params["layers"], gen.params["final_norm"], cfg,
                                      embd, cache, 64, attn_window=256)
-    h_d, _ = dec.forward_step_layers(dense["layers"], dense["final_norm"], cfg, embd, twin, 64,
-                                     attn_window=256)
+    kernel_attn = attn.gqa_decode_attention.launches - before
+    fast = attn.gqa_decode_attention
+    attn.gqa_decode_attention = attn.gqa_decode_attention_ref  # the plain attention
+    try:
+        h_d, _ = dec.forward_step_layers(dense["layers"], dense["final_norm"], cfg, embd, twin,
+                                         64, attn_window=256)
+    finally:
+        attn.gqa_decode_attention = fast
     lk = dec.lm_logits(gen.params, h_k, cfg.vocab_size)
     ld = dec.lm_logits({"lm_head": dequant_mxu(gen.params["lm_head"])}, h_d, cfg.vocab_size)
     cos = torch.nn.functional.cosine_similarity(lk, ld, dim=0).item()
     finite = bool(torch.isfinite(lk).all())
     emit({"phase": "decode_step_check", "logits": list(lk.shape), "finite": finite,
-          "cosine_kernel_vs_dense": cos, "bound": STEP_COSINE_BOUND})
+          "cosine_kernel_vs_dense": cos, "bound": STEP_COSINE_BOUND,
+          "decode_attention_launches": kernel_attn})
     require(finite and lk.shape == (cfg.vocab_size,), "decode-step logits malformed")
+    require(kernel_attn == cfg.num_layers,
+            f"decode step: {kernel_attn} decode-attention launches, want one per layer")
     require(cos >= STEP_COSINE_BOUND, f"decode step: cosine {cos} < {STEP_COSINE_BOUND}")
+
+
+ALIGN_CHECK_TEXT = "the quick brown fox jumps over the lazy dog near the bank"  # 12 words
+
+
+def align_check(torch, engine, model_dir: Path) -> None:
+    """The aligner's sparse logits on the card (dense bf16 layers) against
+    the same runner on the CPU in f32 from the same GGUF, on one prompt: a
+    10 s tone and a fixed 12-word text. Random weights give flat logits, so
+    the rows are compared by cosine, not by argmax."""
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+    from qwen3_asr_gguf_tpu_torch.models import params as P
+    from qwen3_asr_gguf_tpu_torch.runtime.generate import SparseLogitsRunner
+    from qwen3_asr_gguf_tpu_torch.text import align_text
+
+    aligner = engine.aligner
+    audio = tone(10.0, 440.0)
+    t0 = time.time()
+    audio_embd = aligner.encoder.encode(audio)
+    words = align_text.tokenize(ALIGN_CHECK_TEXT, "English")
+    ids, mask, positions = aligner._prompt(words, aligner.encoder.valid_tokens(len(audio)))
+    dev = aligner.device
+    embd = dec.splice_prompt(aligner.runner.params, torch.from_numpy(ids).long().to(dev),
+                             torch.from_numpy(mask).to(dev), audio_embd).float().cpu().numpy()
+    got = aligner.runner.logits_at(embd, positions)
+    card_s = time.time() - t0
+    t0 = time.time()
+    cfg, params, _ = P.load_decoder_gguf(
+        str(model_dir / aligner.config.llm_fn), precision="f32", device="cpu")
+    cpu = SparseLogitsRunner(P.fuse_layer_weights(params), cfg, n_ctx=aligner.config.n_ctx,
+                             device="cpu")
+    want = cpu.logits_at(embd, positions)
+    cpu_s = time.time() - t0
+    a, b = torch.from_numpy(got), torch.from_numpy(want)
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=1)
+    finite = bool(torch.isfinite(a).all())
+    emit({"phase": "align_check", "words": len(words), "prompt_tokens": len(ids),
+          "rows": list(a.shape), "finite": finite, "cosine_card_vs_cpu_f32_min": cos.min().item(),
+          "argmax_equal_share": (a[:, :4000].argmax(1) == b[:, :4000].argmax(1)).float().mean().item(),
+          "bound": STEP_COSINE_BOUND, "card_s": card_s, "cpu_s": cpu_s})
+    require(len(words) == 12 and a.shape == (24, cfg.lm_head_dim), f"align rows {a.shape}")
+    require(finite, "align logits not finite")
+    require(cos.min().item() >= STEP_COSINE_BOUND,
+            f"align logits: cosine {cos.min().item()} < {STEP_COSINE_BOUND}")
+
+
+def check_alignment(res, clip_seconds: float) -> int:
+    """The headline call's alignment: one item per word of the transcript
+    (plus the punctuation pieces reconciled back in), ordered by start time,
+    start <= end; returns the number of items."""
+    from qwen3_asr_gguf_tpu_torch.text import align_text
+
+    from qwen3_asr_gguf_tpu_torch.runtime.aligner import STEP_MS, TIMESTAMP_CLASSES
+
+    require(res.alignment is not None and res.alignment.items, "no alignment returned")
+    items = res.alignment.items
+    n_words = sum(1 for it in items if align_text.tokenize(it.text, "Chinese"))
+    want = len(align_text.tokenize(res.text, "Chinese"))
+    require(n_words == want, f"{n_words} aligned words for {want} words of the transcript")
+    starts = [it.start_time for it in items]
+    require(starts == sorted(starts), "alignment start times decrease")
+    # a trained aligner keeps every time inside the clip; random weights pick
+    # any of the timestamp classes, so the bound a run can hold them to is
+    # the classes' own span past the latest window offset (the clip's end)
+    latest = clip_seconds + TIMESTAMP_CLASSES * STEP_MS / 1000.0
+    for it in items:
+        require(it.start_time <= it.end_time, f"item {it.text!r}: start after end")
+        require(0.0 <= it.start_time and it.end_time <= latest,
+                f"item {it.text!r}: [{it.start_time}, {it.end_time}] outside [0, {latest}]")
+    return len(items)
 
 
 def main() -> int:
@@ -538,7 +747,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from qwen3_asr_gguf_tpu_torch import ASREngineConfig, QwenASREngine, preset
-    from qwen3_asr_gguf_tpu_torch.ops import _build, q4k
+    from qwen3_asr_gguf_tpu_torch.ops import _build, attn, q4k
+    from qwen3_asr_gguf_tpu_torch.schema import AlignerConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -560,13 +770,17 @@ def main() -> int:
     kernel_rows = kernel_phase(torch, dev, cfg.text)
     kernel_rows += rows_kernel_phase(torch, dev, cfg.text)
     kernel_rows += attn_kernel_phase(torch, dev, cfg.text)
+    kernel_rows += decode_attn_kernel_phase(torch, dev, cfg.text)
 
     model_dir = ensure_checkpoint()
     t0 = time.time()
     engine = QwenASREngine(ASREngineConfig(
         model_dir=str(model_dir), llm_fn="qwen3_asr_llm.q4_k.gguf", precision="int4",
         n_ctx=2048, chunk_size=40.0, memory_num=1, verbose=False, max_new_tokens=96,
-        decode_block=96, kv_prefix_reuse=True, kv_cache_dtype="bf16", enable_aligner=False,
+        decode_block=96, kv_prefix_reuse=True, kv_cache_dtype="bf16", enable_aligner=True,
+        align_config=AlignerConfig(model_dir=str(model_dir),
+                                   llm_fn="qwen3_aligner_llm.q4_k.gguf", precision="int8",
+                                   n_ctx=2048),
     ), device=dev)
     emit({"phase": "engine_init", "seconds": time.time() - t0,
           "gpu_mem_gb": torch.cuda.memory_allocated(dev) / 1e9})
@@ -577,24 +791,31 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "warmup", "seconds": time.time() - t0})
 
-    launches = {}
-    for temp in (0.4, 0.0):
-        q4k.q4k_matvec.launches = 0
-        q4k.q4k_matvec_normed.launches = 0
-        torch.cuda.reset_peak_memory_stats(dev)
+    main_path = (q4k.q4k_matvec, q4k.q4k_matvec_normed, attn.gqa_decode_attention)
+
+    def timed_asr(temp: float):
+        """(result, wall seconds, launches of the path's kernels) of one call."""
+        for wrapper in main_path:
+            wrapper.launches = 0
         t0 = time.time()
         res = engine.asr(audio, context="", language="Chinese", temperature=temp)
         torch.cuda.synchronize()
-        wall = time.time() - t0
-        counts = {"q4k_matvec": q4k.q4k_matvec.launches,
-                  "q4k_matvec_normed": q4k.q4k_matvec_normed.launches}
+        return res, time.time() - t0, {w.__name__: w.launches for w in main_path}
+
+    launches = {}
+    for temp in (0.4, 0.0):
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, wall, counts = timed_asr(temp)
         perf = res.performance
+        n_align_items = check_alignment(res, CLIP_SECONDS)
         row = {"phase": "asr", "temperature": temp, "audio_s": CLIP_SECONDS, "wall_s": wall,
                "rtf": wall / CLIP_SECONDS, "prefill_tokens": perf["prefill_tokens"],
                "decode_tokens": perf["decode_tokens"], "prefill_s": perf["prefill_time"],
                "decode_s": perf["decode_time"], "encode_s": perf["encode_time"],
                "decode_tok_per_s": perf["decode_tokens"] / max(perf["decode_time"], 1e-9),
                "text_chars": len(res.text), "launches": counts,
+               "n_align_items": n_align_items, "align_enc_time": perf["align_enc_time"],
+               "align_dec_time": perf["align_dec_time"],
                # two normed matvecs (qkv, gate_up) per layer per decode step;
                # unlike decode_tokens (the final attempt of each chunk) this
                # includes the steps of breaker retries
@@ -604,11 +825,32 @@ def main() -> int:
         require(perf["decode_tokens"] > 0, "no decode tokens")
         require(isinstance(res.text, str) and len(res.text) > 0, "empty transcript")
         require(all(c > 0 for c in counts.values()), f"a kernel never launched: {counts}")
+        require(counts["gqa_decode_attention"] == cfg.text.num_layers * row["decode_steps"],
+                f"decode attention: {counts['gqa_decode_attention']} launches for "
+                f"{row['decode_steps']} decode steps of {cfg.text.num_layers} layers")
         require(math.isfinite(wall), "wall time not finite")
         if temp == 0.4:
             launches = counts
 
+    # the same call without the aligner, and with the plain decode attention
+    # in place of the kernel: host-clock times compare only inside one run
+    aligner, fast = engine.aligner, attn.gqa_decode_attention
+    compare = {"aligned_kernel": timed_asr(0.4)[1]}
+    engine.aligner = None
+    compare["aligner_off"] = timed_asr(0.4)[1]
+    engine.aligner = aligner
+    attn.gqa_decode_attention = attn.gqa_decode_attention_ref
+    try:
+        _, compare["aligned_plain_attention"], plain_counts = timed_asr(0.4)
+    finally:
+        attn.gqa_decode_attention = fast
+    compare["aligned_kernel_again"] = timed_asr(0.4)[1]
+    emit({"phase": "asr_compare", "temperature": 0.4, "audio_s": CLIP_SECONDS,
+          "wall_s": compare, "rtf": {k: v / CLIP_SECONDS for k, v in compare.items()}})
+    require(plain_counts["gqa_decode_attention"] == 0, "the plain attention launched the kernel")
+
     decode_step_check(torch, engine)
+    align_check(torch, engine, model_dir)
     emb = engine.encoder.encode(torch.from_numpy(audio[: 40 * 16_000]).to(dev))
     n_tok = engine.encoder.valid_tokens(40 * 16_000)
     require(tuple(emb.shape) == (n_tok, cfg.audio.output_dim), f"encoder shape {tuple(emb.shape)}")
@@ -626,6 +868,7 @@ def main() -> int:
     launches["q4k_matmul_rows"] = served["launches"]["q4k_matmul_rows"]
     launches["gqa_rows_q8_attention"] = served_int8["launches"]["gqa_rows_q8_attention"]
     paths = {"q4k_matvec": "asr (temperature 0.4)", "q4k_matvec_normed": "asr (temperature 0.4)",
+             "gqa_decode_attention": "asr (temperature 0.4)",
              "q4k_matmul_rows": "serve (bf16 KV)", "gqa_rows_q8_attention": "serve_int8_kv"}
 
     def case(r):
@@ -633,18 +876,25 @@ def main() -> int:
             return f"{r['shape']}/T={r['t']}"
         return r.get("shape") or f"win={r['win']}"
 
+    def total(rows, key):
+        return None if any(r[key] is None for r in rows) else sum(r[key] for r in rows)
+
+    timed = ("ms", "plain_ms", "bound_ms", "library_ms")
     kernels = []
     for name in REPLACES:
         mine = [r for r in kernel_rows if r["name"] == name]
-        summed = [r for r in mine if r.get("t", ROWS_T[0]) == ROWS_T[0]]
+        # one call at each of the kernel's main-path shapes, summed: the
+        # multi-row matmul at T = 8 (the serving batch), the attention
+        # kernels at the 1024-slot window
+        summed = [r for r in mine if r.get("t", ROWS_T[0]) == ROWS_T[0]
+                  and r.get("win", ATTN_HEADLINE_WIN) == ATTN_HEADLINE_WIN]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name], "path": paths[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            # one call at each of the kernel's main-path shapes (the multi-row
-            # matmul at T = 8, the serving batch), summed
-            "ms": sum(r["ms"] for r in summed), "plain_ms": sum(r["plain_ms"] for r in summed),
-            "shapes": {case(r): {"ms": r["ms"], "plain_ms": r["plain_ms"],
+            **{key: total(summed, key) for key in timed},
+            "bound_by": summed[0]["bound_by"],
+            "shapes": {case(r): {**{key: r[key] for key in timed},
                                  "max_abs_err": r["max_abs_err"]} for r in mine},
         })
     emit({"kernels": kernels})

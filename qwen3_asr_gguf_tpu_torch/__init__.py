@@ -1,18 +1,19 @@
 """Qwen3-ASR on PyTorch and CUDA: the port of `qwen3_asr_gguf_tpu` (JAX on a
 TPU) to one NVIDIA Hopper GPU.
 
-Same public API as the JAX package (`QwenASREngine` with the shared
-`ASREngineConfig`), with an explicit torch device. Modules that import no
-JAX (formats, text, schema, configs, the native codec) are shared with the
-JAX package; everything else is ported, and the Pallas kernels of the main
-path are hand-written CUDA kernels in `csrc/`, built with nvcc at first use.
-This package never imports JAX.
+Same public API as the JAX package (`QwenASREngine` with an
+`ASREngineConfig`), with an explicit torch device. The package keeps its own
+copies of the JAX package's modules that need no JAX (formats, text, schema,
+configs, audio I/O, the native codec binding); everything else is ported,
+and the Pallas kernels of the ported paths are hand-written CUDA kernels in
+`csrc/`, built with nvcc at first use. This package imports neither JAX nor
+the JAX package.
 """
 
 from __future__ import annotations
 
-from qwen3_asr_gguf_tpu.models.configs import preset
-from qwen3_asr_gguf_tpu.schema import (
+from .models.configs import preset
+from .schema import (
     ASREngineConfig,
     DecodeResult,
     TranscribeResult,
@@ -30,8 +31,8 @@ def __getattr__(name: str):
         from .runtime.engine import QwenASREngine
 
         return QwenASREngine
-    if name == "native":  # the shared C codec (q4_k quantize/dequant on the host)
-        from qwen3_asr_gguf_tpu import native
+    if name == "native":  # the C codec (q4_k quantize/dequant on the host)
+        import importlib
 
-        return native
+        return importlib.import_module(".native", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -2,8 +2,8 @@
 
     python -m qwen3_asr_gguf_tpu_torch.cli.serve --model-dir DIR [--device cuda|cpu]
 
-The HTTP surface is the JAX package's (`qwen3_asr_gguf_tpu.cli.serve`:
-`ASRServer`, `make_handler`, `parse_multipart`, which import no JAX):
+The HTTP surface is `cli/http.py` (`ASRServer`, `make_handler`,
+`parse_multipart`, the port's copy of the JAX package's):
 
   POST /v1/audio/transcriptions   multipart: file, model, language, prompt,
                                   temperature, response_format
@@ -22,10 +22,30 @@ from __future__ import annotations
 import argparse
 import sys
 from http.server import ThreadingHTTPServer
+from pathlib import Path
 
-from qwen3_asr_gguf_tpu.cli.serve import ASRServer, make_handler
+from .http import ASRServer, make_handler
 
 MODEL_NAME = "qwen3-asr-torch"
+
+
+def _resolve_llm_fn(model_dir: str, prec: str) -> str:
+    """Precision -> decoder filename (reference transcribe.py:29-35)."""
+    candidates = {
+        "q4_k": "qwen3_asr_llm.q4_k.gguf",
+        "int4": "qwen3_asr_llm.q4_k.gguf",
+        "int8": "qwen3_asr_llm.q4_k.gguf",
+        "bf16": "qwen3_asr_llm.f16.gguf",
+        "f16": "qwen3_asr_llm.f16.gguf",
+        "f32": "qwen3_asr_llm.f32.gguf",
+    }
+    fn = candidates[prec]
+    if not Path(model_dir, fn).exists():
+        for alt in dict.fromkeys(candidates.values()):
+            if Path(model_dir, alt).exists():
+                print(f"[warn] {fn} not found; using {alt}", file=sys.stderr)
+                return alt
+    return fn
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-ctx", type=int, default=2048)
     p.add_argument("--chunk-size", type=float, default=40.0)
     p.add_argument("--timestamp", action="store_true",
-                   help="enable the aligner (not ported yet)")
+                   help="enable the aligner (the server's align pool is not ported yet)")
     p.add_argument("--llm-fn", default=None)
     p.add_argument("--batch-window", type=float, default=0.05,
                    help="micro-batch gather window seconds (micro mode, not ported yet)")
@@ -57,17 +77,16 @@ def build_from_args(args: argparse.Namespace, **engine_config):
     overrides fields of the engine's `ASREngineConfig`."""
     import torch
 
-    from qwen3_asr_gguf_tpu.cli.transcribe import _resolve_llm_fn
-    from qwen3_asr_gguf_tpu.schema import ASREngineConfig
-
     from ..runtime.engine import QwenASREngine
+    from ..schema import ASREngineConfig
 
     if args.mesh:
         raise NotImplementedError("--mesh: tensor-parallel serving is not ported yet "
                                   "(ROADMAP.md Queue 1, item 7)")
     if args.timestamp:
-        raise NotImplementedError("--timestamp: the forced aligner is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 1)")
+        raise NotImplementedError("--timestamp: the server's align pool is not ported yet "
+                                  "(ROADMAP.md Queue 1, item 4); the engine itself aligns "
+                                  "with ASREngineConfig(enable_aligner=True)")
     if args.batch_mode == "micro":
         raise NotImplementedError("--batch-mode micro: MicroBatcher is not ported yet "
                                   "(ROADMAP.md Queue 1, item 4)")

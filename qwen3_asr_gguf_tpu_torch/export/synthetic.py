@@ -21,13 +21,12 @@ from pathlib import Path
 
 import numpy as np
 
-from qwen3_asr_gguf_tpu.models.configs import ThinkerConfig, preset
-from qwen3_asr_gguf_tpu.text.tokenizer import BPETokenizer, build_synthetic_tokenizer
-
 from ..audio.mel import mel_filterbank
 from ..models import decoder as dec_model
 from ..models import encoder as enc_model
 from ..models import params as P
+from ..models.configs import ThinkerConfig, preset
+from ..text.tokenizer import BPETokenizer, build_synthetic_tokenizer
 
 ASR_ENCODER_FN = "qwen3_asr_encoder.safetensors"
 ALIGNER_ENCODER_FN = "qwen3_aligner_encoder.safetensors"
@@ -78,7 +77,7 @@ def np_init_like(shapes: dict, seed: int) -> dict:
 def cjk_word_token_ids(tok) -> np.ndarray:
     """Vocab ids that decode to exactly one CJK character and round-trip
     through encode()."""
-    from qwen3_asr_gguf_tpu.text.align_text import is_cjk_char
+    from ..text.align_text import is_cjk_char
 
     ids = []
     for tid in range(tok.n_vocab):

@@ -22,10 +22,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from qwen3_asr_gguf_tpu.models.configs import TextDecoderConfig
-
 from ..ops import attn as attn_ops
 from ..ops.qtensor import matmul, matmul_normed
+from .configs import TextDecoderConfig
 
 Params = dict[str, Any]
 MASKED = -1e30  # masked score: a fully masked row gives a uniform softmax, not NaN
@@ -276,20 +275,29 @@ def forward_step_layers(layer_list: list[Params], final_norm: torch.Tensor,
                         pos: int, *, attn_window: int | None = None):
     """One decode step for the token at `pos` (embd [D]): each layer writes
     its K/V at `pos` BEFORE attending to the first `attn_window` slots
-    (slot <= pos). Returns (hidden [D], cache)."""
+    (slot <= pos). A bf16 or f32 cache attends through `ops.attn.
+    gqa_decode_attention` on the full cache: on the card it launches kernel 4
+    or raises (the window must be whole 256-slot tiles); on the CPU it runs
+    its plain version. An int8 cache keeps the plain attention on a
+    dequantized window. Returns (hidden [D], cache)."""
     s_max = cache["k"][0].shape[0]
     win = s_max if attn_window is None else min(attn_window, s_max)
     dev = embd.device
     scale = cfg.head_dim ** -0.5
     cos, sin = rope_cos_sin(torch.tensor([pos], device=dev), cfg.head_dim, cfg.rope_theta)
-    valid = (torch.arange(win, device=dev) <= pos)[None, :]
+    int8_kv = cache["k"][0].dtype == torch.int8
+    if int8_kv:
+        valid = (torch.arange(win, device=dev) <= pos)[None, :]
     h = embd[None, :]
     eps = cfg.rms_norm_eps
     for l, layer in enumerate(layer_list):
         q, k, v = _layer_qkv(layer, cfg, h, cos, sin, pre_norm=(layer["attn_norm"], eps))
         _write_cache(cache, l, pos, k[0], v[0])
-        k_win, v_win = _read_cache_window(cache, l, win, k.dtype)
-        attn = _gqa_attention(q, k_win, v_win, valid, scale)
+        if int8_kv:
+            k_win, v_win = _read_cache_window(cache, l, win, k.dtype)
+            attn = _gqa_attention(q, k_win, v_win, valid, scale)
+        else:
+            attn = attn_ops.gqa_decode_attention(q, cache["k"][l], cache["v"][l], pos, scale, win)
         h = h + matmul(attn.reshape(1, -1), layer["o_proj"])
         h = h + _mlp(layer, h, pre_norm=(layer["mlp_norm"], eps))
     return rms_norm(h, final_norm, eps)[0], cache

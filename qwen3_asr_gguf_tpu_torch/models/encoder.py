@@ -18,9 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from qwen3_asr_gguf_tpu.models.configs import AudioEncoderConfig
-
 from ..ops.qtensor import matmul
+from .configs import AudioEncoderConfig
 
 Params = dict[str, Any]
 MASKED = -1e30

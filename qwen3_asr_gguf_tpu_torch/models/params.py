@@ -6,7 +6,9 @@ encoder checkpoints safetensors. Loading yields the port's parameter dicts
 (per-layer lists; see models/decoder.py) on a torch device. The int4 path
 repacks q4_k tensors into the matvec layout (`ops.q4k.Q4KWeight`); nothing is
 cached beside the checkpoint (the JAX package's `.int4/` sidecars hold its
-own layout and are neither read nor written here).
+own layout and are neither read nor written here). The int8 path
+requantizes q4_k content to per-channel int8 (`ops.qtensor.Int8Weight`) on
+the host, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -21,18 +23,13 @@ from typing import Any
 import numpy as np
 import torch
 
-from qwen3_asr_gguf_tpu.formats import GGUFReader, GGUFWriter
-from qwen3_asr_gguf_tpu.formats import quants as q
-from qwen3_asr_gguf_tpu.models.configs import (
-    AudioEncoderConfig,
-    TextDecoderConfig,
-    ThinkerConfig,
-)
-from qwen3_asr_gguf_tpu.text.tokenizer import BPETokenizer
-
+from ..formats import GGUFReader, GGUFWriter
+from ..formats import quants as q
 from ..ops.q4k import Q4KWeight, dequant_mxu, pack_q4k_mxu, pad_rows
-from ..ops.qtensor import Q4Weight, dequant_q4, dequant_q6k
+from ..ops.qtensor import Int8Weight, Q4Weight, dequant_int8, dequant_q4, dequant_q6k
+from ..text.tokenizer import BPETokenizer
 from . import safetensors_np
+from .configs import AudioEncoderConfig, TextDecoderConfig, ThinkerConfig
 
 # param name -> GGUF per-layer tensor suffix
 _LAYER_MAP = {
@@ -91,7 +88,7 @@ def decoder_config_from_gguf(reader: GGUFReader) -> TextDecoderConfig:
 
 
 def _embed(reader: GGUFReader, device, dtype) -> torch.Tensor:
-    from qwen3_asr_gguf_tpu import native
+    from .. import native
 
     name = "token_embd.weight"
     ti = reader.tensors[name]
@@ -108,12 +105,27 @@ def _mxu_parts(reader: GGUFReader, name: str):
     return pack_q4k_mxu(q.pack_q4_direct(reader.tensor(name, dtype=np.float32)))
 
 
+def _int8_rows(dense: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Dense [N, K] -> per-channel symmetric int8 on the host: (int8 [N, K],
+    f32 scale [N])."""
+    amax = np.maximum(np.abs(dense).max(axis=-1), 1e-10)
+    scale = (amax / 127.0).astype(np.float32)
+    qv = np.clip(np.round(dense / scale[:, None]), -127, 127).astype(np.int8)
+    return qv, scale
+
+
+def _int8_weight(parts: tuple[np.ndarray, np.ndarray], device) -> Int8Weight:
+    return Int8Weight(q=_t(parts[0], device), scale=_t(parts[1], device, torch.float32))
+
+
 def load_decoder_gguf(
     path: str, *, precision: str = "int4", device="cpu",
 ) -> tuple[TextDecoderConfig, dict, BPETokenizer]:
     """precision "int4": q4_k weights in the matvec layout, bf16 embed;
-    "bf16" / "f32": dense weights of that dtype. Norms stay f32."""
-    if precision not in ("int4", "bf16", "f32"):
+    "int8": q4_k weights requantized to per-channel int8, the head per-row
+    int8 from its f32 values, bf16 embed; "bf16" / "f32": dense weights of
+    that dtype. Norms stay f32."""
+    if precision not in ("int4", "int8", "bf16", "f32"):
         raise NotImplementedError(f"decoder precision {precision!r} is not ported yet")
     reader = GGUFReader(path)
     cfg = decoder_config_from_gguf(reader)
@@ -133,6 +145,13 @@ def load_decoder_gguf(
             parts = pad_rows(*pad_rows(*_mxu_parts(reader, head_name)), multiple=1024)
             return Q4KWeight.from_numpy(*parts, device=device)
 
+    elif precision == "int8":
+        def weight(name):
+            return _int8_weight(_int8_rows(q.unpack_q4(reader.packed_q4(name))), device)
+
+        def head():
+            return _int8_weight(_int8_rows(reader.tensor(head_name, dtype=np.float32)), device)
+
     else:
         def weight(name):
             return _t(reader.tensor(name, dtype=np.float32), device, dense_dtype)
@@ -150,7 +169,7 @@ def load_decoder_gguf(
     for (i, mine, _), v in zip(names, loaded):
         layers[i][mine] = v
     params = {
-        # under int4 the embed is bf16, as the JAX int4 path stores it
+        # under int4 and int8 the embed is bf16, as the JAX package stores it
         "embed": _embed(reader, device, dense_dtype),
         "layers": layers,
         "final_norm": norm("output_norm.weight"),
@@ -172,6 +191,9 @@ def _cat(ws: list):
     if isinstance(ws[0], Q4Weight):
         return Q4Weight(*(torch.cat([getattr(w, f) for w in ws], dim=-2)
                           for f in ("packed", "scale", "minv")))
+    if isinstance(ws[0], Int8Weight):
+        return Int8Weight(q=torch.cat([w.q for w in ws], dim=-2),
+                          scale=torch.cat([w.scale for w in ws], dim=-1))
     return torch.cat(ws, dim=-2)
 
 
@@ -199,6 +221,8 @@ def dequant_prefill_params(params: dict) -> dict:
             return dequant_mxu(v, dtype=torch.bfloat16)
         if isinstance(v, Q4Weight):
             return dequant_q4(v, dtype=torch.bfloat16)
+        if isinstance(v, Int8Weight):
+            return dequant_int8(v, dtype=torch.bfloat16)
         return v
 
     return dict(params, layers=[{k: leaf(v) for k, v in layer.items()}
@@ -314,16 +338,19 @@ def load_encoder_safetensors(path: str, *, dtype=torch.float32, device="cpu"
 
 def load_encoder_quantized(path: str, *, group: int = 32, kind: str = "int4", device="cpu"
                            ) -> tuple[AudioEncoderConfig, dict]:
-    """Encoder safetensors with its matmul weights packed to group-32
-    asymmetric int4 (`Q4Weight`); everything else f32."""
-    if kind != "int4":
-        raise NotImplementedError(f"encoder quant kind {kind!r} is not ported yet")
+    """Encoder safetensors with its matmul weights quantized: kind "int4"
+    packs them to group-32 asymmetric int4 (`Q4Weight`), "int8" to
+    per-channel symmetric int8 (`Int8Weight`); everything else f32."""
+    if kind not in ("int4", "int8"):
+        raise ValueError(f"unknown encoder quant kind {kind!r}")
     cfg, flat = _read_encoder(path)
     qnames = set(_ENC_Q4_TOP) | {f"layers.{n}" for n in _ENC_Q4_LAYER}
 
     def pack(name_i):
         name, i = name_i
         w = flat[name] if i is None else flat[name][i]
+        if kind == "int8":
+            return _int8_weight(_int8_rows(w), device)
         return Q4Weight.from_packed(q.pack_q4_direct(w, group=group), device=device)
 
     jobs = [(n, None) for n in _ENC_Q4_TOP]
@@ -361,6 +388,8 @@ def _convert_leaf(v, device, index=None):
     if all(hasattr(v, f) for f in ("packed", "scale", "minv")):
         return Q4Weight(*(_np_to_torch(pick(getattr(v, f)), device)
                           for f in ("packed", "scale", "minv")))
+    if all(hasattr(v, f) for f in ("q", "scale")):
+        return Int8Weight(*(_np_to_torch(pick(getattr(v, f)), device) for f in ("q", "scale")))
     return _np_to_torch(pick(v), device)
 
 
@@ -373,7 +402,7 @@ def from_jax_params(tree: dict, device="cpu") -> dict:
     for k, v in tree.items():
         if k == "layers":
             first = next(iter(v.values()))
-            n = np.asarray(getattr(first, "packed", first)).shape[0]
+            n = np.asarray(getattr(first, "packed", getattr(first, "q", first))).shape[0]
             out[k] = [{name: _convert_leaf(leaf, device, i) for name, leaf in v.items()}
                       for i in range(n)]
         else:

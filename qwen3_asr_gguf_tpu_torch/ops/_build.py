@@ -71,6 +71,13 @@ _SIGNATURES = {
         _F,  # scale
         _P,  # stream
     ],
+    "gqa_decode_attention_launch": [
+        _P, _P, _P, _I,  # q, k, v, kv_is_bf16
+        _P, _I,  # out, out_is_bf16
+        _I, _I, _I, _I, _I, _I,  # hq, hkv, d, s_max, pos, win
+        _F,  # scale
+        _P,  # stream
+    ],
 }
 
 _lock = threading.Lock()

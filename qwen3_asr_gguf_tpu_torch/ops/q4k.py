@@ -29,7 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from qwen3_asr_gguf_tpu.formats import quants as q
+from ..formats import quants as q
 
 from . import _build
 

@@ -4,8 +4,11 @@
 Convention: weights are [out_features, in_features] (GGUF row order) and
 ``matmul(x, w) == x @ dequant(w).T``. A `Q4KWeight` takes one row through the
 q4_k matvec kernel where `supported`, and 8 to 64 rows (a multiple of 8)
-through the multi-row kernel where `supported_rows`; everything else is a
-dequant followed by a dense matmul that accumulates in f32.
+through the multi-row kernel where `supported_rows`; an `Int8Weight` takes the
+int8 x int8 product with per-row activation quantization (`int8_matmul`,
+plain PyTorch as in the JAX package, which computes it outside any Pallas
+kernel); everything else is a dequant followed by a dense matmul that
+accumulates in f32.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from qwen3_asr_gguf_tpu.formats.quants import PackedQ4
+from ..formats.quants import PackedQ4
 
 from . import q4k
 
@@ -61,6 +64,53 @@ def dequant_q4(w: Q4Weight, dtype=torch.bfloat16) -> torch.Tensor:
     return dense.reshape(n, k).to(dtype)
 
 
+@dataclass
+class Int8Weight:
+    """Per-output-channel symmetric int8 weight: activations are quantized
+    per row at the call and both scales apply after the integer product."""
+
+    q: torch.Tensor  # int8 [N, K]
+    scale: torch.Tensor  # f32 [N]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return tuple(self.q.shape[-2:])  # type: ignore[return-value]
+
+
+def dequant_int8(w: Int8Weight, dtype=torch.bfloat16) -> torch.Tensor:
+    """Dense [N, K]: q * scale in f32, then `dtype`."""
+    return (w.q.float() * w.scale[..., None]).to(dtype)
+
+
+def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [..., K] -> (int8 values, f32 scale [..., 1]), one scale per row. The
+    int8s come from a DIVISION by the scale (the q4_k kernels multiply by its
+    reciprocal; the two differ at .5 boundaries)."""
+    xf = x.float()
+    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-10)
+    return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8), sx
+
+
+def int8_matmul(x: torch.Tensor, w: Int8Weight) -> torch.Tensor:
+    """x [..., K] @ dequant(w).T with dynamic per-row activation quantization."""
+    xq, sx = quantize_rows_int8(x)
+    # the int8 x int8 products are summed in f64: every partial sum is an
+    # integer below 127 * 127 * K < 2**53, so the sum is exact at any K
+    # (f32 holds integers only up to 2**24, which K = 2048 can pass), and it
+    # rounds to f32 as the reference's int32 sum does. int32 matmul itself
+    # has no CUDA kernel in PyTorch.
+    y = torch.matmul(xq.double(), w.q.double().T).float()
+    return (y * sx * w.scale).to(x.dtype)
+
+
+def to_int8(w) -> Int8Weight:
+    """A `Q4Weight` or a dense [N, K] tensor as per-channel int8."""
+    dense = dequant_q4(w, dtype=torch.float32) if isinstance(w, Q4Weight) else w.float()
+    scale = torch.clamp(dense.abs().amax(dim=-1) / 127.0, min=1e-10)
+    q = torch.clamp(torch.round(dense / scale[:, None]), -127, 127).to(torch.int8)
+    return Int8Weight(q=q, scale=scale)
+
+
 def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w[N, K].T with an f32 accumulate, result in x's dtype.
     On the card a same-dtype product is one cuBLAS call (it accumulates in
@@ -71,13 +121,16 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x [..., K] @ w.T -> [..., N]; w is Q4KWeight, Q4Weight or dense [N, K]."""
+    """x [..., K] @ w.T -> [..., N]; w is Q4KWeight, Int8Weight, Q4Weight or
+    dense [N, K]."""
     if isinstance(w, q4k.Q4KWeight):
         if q4k.supported(tuple(x.shape), w):
             return q4k.q4k_matvec(x, w)  # decode matvec: int4 stream, exact q4_k
         if q4k.supported_rows(tuple(x.shape), w):
             return q4k.q4k_matmul_rows(x, w)  # batched decode rows (serving)
         return dense_matmul(x, q4k.dequant_mxu(w, dtype=x.dtype))
+    if isinstance(w, Int8Weight):
+        return int8_matmul(x, w)
     if isinstance(w, Q4Weight):
         return dense_matmul(x, dequant_q4(w, dtype=x.dtype))
     return dense_matmul(x, w)

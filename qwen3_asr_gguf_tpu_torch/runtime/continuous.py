@@ -33,10 +33,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from qwen3_asr_gguf_tpu.schema import TranscribeResult
-
 from ..models import decoder as dec
 from ..ops.sampling import sample_rows
+from ..schema import TranscribeResult
 from .generate import prompt_bucket, round_up
 
 SAMPLE_RATE = 16_000
@@ -441,7 +440,7 @@ class ContinuousBatcher:
         def parse_detect(text: str, tokens: list) -> tuple[str, list]:
             """Strip ``language X<asr_text>`` from the text and the carried
             tokens; record the language for later chunks."""
-            from qwen3_asr_gguf_tpu.text.parsing import parse_asr_output
+            from ..text.parsing import parse_asr_output
 
             d_lang, body = parse_asr_output(text)
             if d_lang:

@@ -15,11 +15,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from qwen3_asr_gguf_tpu.models.configs import AudioEncoderConfig
-
 from ..audio.mel import HOP, LogMelFrontend, pad_signal_for_bucket
 from ..models import encoder as enc
-from ..ops.qtensor import Q4Weight
+from ..models.configs import AudioEncoderConfig
+from ..ops.qtensor import Int8Weight, Q4Weight
 
 SAMPLE_RATE = 16_000
 
@@ -36,7 +35,7 @@ class EncoderRunner:
         # a quantized encoder runs its backend in bf16 on the card and in f32
         # elsewhere (the JAX package's TPU / non-TPU split); norms and GELU
         # compute in f32 either way
-        quantized = isinstance(params.get("proj1_w"), Q4Weight)
+        quantized = isinstance(params.get("proj1_w"), (Int8Weight, Q4Weight))
         self.compute_dtype = (
             torch.bfloat16 if quantized and self.device.type == "cuda" else None
         )

@@ -16,14 +16,18 @@ Same semantics as the JAX engine's synchronous path:
 
 Precisions: "int4" (the q4_k decoder and int4 encoder) and "f32"; KV caches
 bf16, f32 or int8 (`kv_cache_dtype`; an f32 engine keeps f32 KV, as in the
-JAX package). Not ported yet (see ROADMAP.md): the forced aligner, the mesh,
-the int8 and half-precision weights. `pipelined_dispatch` runs this
-synchronous path, which gives the same tokens.
+JAX package). With `enable_aligner`, chunk i is force-aligned as soon as its
+text is final, in the same windows and with the same offsets as the JAX
+engine's align worker (which aligns chunk i-1 while chunk i decodes; here the
+steps run one after the other and give the same items). Not ported yet (see
+ROADMAP.md): the mesh, the int8 and half-precision weights.
+`pipelined_dispatch` runs this synchronous path, which gives the same tokens.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import re
 import time
@@ -34,13 +38,19 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from qwen3_asr_gguf_tpu.schema import ASREngineConfig, DecodeResult, TranscribeResult
-from qwen3_asr_gguf_tpu.utils.languages import normalize_language_name, validate_language
-
 from ..models import params as P
+from ..schema import (
+    ASREngineConfig,
+    DecodeResult,
+    ForcedAlignItem,
+    ForcedAlignResult,
+    TranscribeResult,
+)
+from ..utils.languages import normalize_language_name, validate_language
 from .encoder_runner import EncoderRunner
 from .generate import Generator
 
+logger = logging.getLogger(__name__)
 SAMPLE_RATE = 16_000
 _PUNCT_NEWLINE = re.compile(r"([，。？！：,\.])")
 _KV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}
@@ -53,14 +63,13 @@ class _Segment:
     audio_end: float
     text: str = ""
     lang: str = ""  # language detected for this chunk (auto mode)
+    items: Optional[List[ForcedAlignItem]] = None
 
 
 class QwenASREngine:
     def __init__(self, config: ASREngineConfig, device="cuda"):
         if config.mesh_shape:
             raise NotImplementedError("mesh inference is not ported yet")
-        if config.enable_aligner:
-            raise NotImplementedError("the forced aligner is not ported yet")
         if config.precision not in ("int4", "f32"):
             raise NotImplementedError(f"precision {config.precision!r} is not ported yet")
         kv_name = "f32" if config.precision == "f32" else config.kv_cache_dtype
@@ -104,6 +113,12 @@ class QwenASREngine:
         self.ID_AUDIO_START = thinker.audio_start_token_id
         self.ID_AUDIO_END = thinker.audio_end_token_id
         self.ID_ASR_TEXT = thinker.asr_text_token_id
+
+        self.aligner = None
+        if config.enable_aligner and config.align_config is not None:
+            from .aligner import QwenForcedAligner
+
+            self.aligner = QwenForcedAligner(config.align_config, device=self.device)
         self.init_seconds = time.time() - t_init
 
     def shutdown(self) -> None:
@@ -281,6 +296,7 @@ class QwenASREngine:
         print(f"  audio duration : {audio_duration:.2f} s")
         print(f"  total time     : {t_total:.2f} s")
         print(f"  encode wait    : {stats['wait_time']:.2f} s")
+        print(f"  align total    : {stats['align_enc_time'] + stats['align_dec_time']:.2f} s")
         print(f"  LLM prefill    : {stats['prefill_time']:.3f} s ({stats['prefill_tokens']} tok, {pre:.1f} tok/s)")
         print(f"  LLM generate   : {stats['decode_time']:.3f} s ({stats['decode_tokens']} tok, {gen:.1f} tok/s)")
 
@@ -290,7 +306,7 @@ class QwenASREngine:
                    context: Optional[str] = None, start_second: float = 0.0,
                    duration: float = 0.0, temperature: float = 0.4,
                    rollback_num: int = 5) -> TranscribeResult:
-        from qwen3_asr_gguf_tpu.audio.io import load_audio
+        from ..audio.io import load_audio
 
         audio = load_audio(audio_file, start_second=start_second or None,
                            duration=duration or None)
@@ -322,6 +338,7 @@ class QwenASREngine:
         ]
         memory: deque = deque(maxlen=memory_chunks)
         full_text = ""
+        aligned_items: List[ForcedAlignItem] = []
         stats = {
             "prefill_time": 0.0, "decode_time": 0.0,
             "prefill_tokens": 0, "decode_tokens": 0,
@@ -367,6 +384,47 @@ class QwenASREngine:
             mask[len(hdr): len(hdr) + n_audio_prompt] = True
             return ids, mask, combined
 
+        def align_window(idx: int) -> tuple[float, int, int]:
+            """(offset_sec, start_sample, end_sample) of segment idx's align
+            window: it starts where segment idx-1's last aligned item ended,
+            at most 10 s before that segment's end; valid once segment
+            idx-1's items are known."""
+            seg = segments[idx]
+            offset_sec = seg.audio_start
+            if idx > 0 and segments[idx - 1].items:
+                last_end = segments[idx - 1].items[-1].end_time
+                prev_limit = segments[idx - 1].audio_end
+                offset_sec = min(prev_limit, max(last_end, prev_limit - 10.0))
+            return offset_sec, int(offset_sec * SAMPLE_RATE), int(seg.audio_end * SAMPLE_RATE)
+
+        def run_align(idx: int) -> None:
+            """Align segment idx once its text is final."""
+            seg = segments[idx]
+            if not seg.text.strip():
+                seg.items = []
+                return
+            offset_sec, s, e = align_window(idx)
+            try:
+                ares = self.aligner.align(
+                    audio[s:e], seg.text,
+                    language=seg.lang or cur_lang or "Chinese",
+                    offset_sec=offset_sec,
+                )
+            except Exception:
+                # degrade to no timestamps for this chunk, and say so
+                logger.warning(
+                    "forced alignment failed for chunk %d [%0.1fs-%0.1fs]; "
+                    "timestamps degraded to empty",
+                    idx, offset_sec, seg.audio_end, exc_info=True,
+                )
+                seg.items = []
+                return
+            seg.items = list(ares.items)
+            aligned_items.extend(ares.items)
+            if ares.performance:
+                stats["align_enc_time"] += ares.performance.get("encoder_time", 0)
+                stats["align_dec_time"] += ares.performance.get("decoder_time", 0)
+
         for i in range(num_chunks):
             t_w = time.time()
             audio_feature = self.encoder.encode(chunks_dev[i])[:a_full]
@@ -407,7 +465,7 @@ class QwenASREngine:
             chunk_text = res.text
             mem_tokens = list(res.stable_tokens)
             if detecting and cur_lang is None:
-                from qwen3_asr_gguf_tpu.text.parsing import parse_asr_output
+                from ..text.parsing import parse_asr_output
 
                 d_lang, body = parse_asr_output(chunk_text)
                 segments[i].lang = d_lang
@@ -423,16 +481,22 @@ class QwenASREngine:
             stats["prefill_time"] += res.t_prefill
             stats["decode_tokens"] += res.n_generate
             stats["decode_time"] += res.t_generate
+            if self.aligner is not None:
+                run_align(i)
 
+        aligned_items.sort(key=lambda x: x.start_time)
         t_total = time.time() - t_main
         if self.verbose:
             self._print_stats(stats, total_duration, t_total)
         if language:
             result_language = language
         else:
-            from qwen3_asr_gguf_tpu.text.parsing import merge_languages
+            from ..text.parsing import merge_languages
 
             result_language = merge_languages([s.lang for s in segments])
-        return TranscribeResult(text=full_text, alignment=None, performance=stats,
-                                language=result_language)
+        return TranscribeResult(
+            text=full_text,
+            alignment=ForcedAlignResult(items=aligned_items) if aligned_items else None,
+            performance=stats, language=result_language,
+        )
 

@@ -5,7 +5,9 @@
   0, or on top of a reused cache prefix) and sample the first token;
 - `decode_block`: up to `block` decode steps with the EOS latch and the
   repetition latch (<= 3 distinct tokens in the last 15), returning the
-  tokens fed in.
+  tokens fed in;
+- `SparseLogitsRunner`: one causal prefill with logits only at requested
+  positions (the forced aligner's readout).
 
 Prompts are padded to `prompt_bucket` lengths (padding keys are masked) and
 decode attends to a window of the cache rounded up to 256 slots, as in the
@@ -19,9 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from qwen3_asr_gguf_tpu.models.configs import TextDecoderConfig
-
 from ..models import decoder as dec
+from ..models.configs import TextDecoderConfig
 from ..ops.sampling import sample
 
 
@@ -83,7 +84,11 @@ class Generator:
         return self._prefill_params
 
     def new_cache(self) -> dict:
-        return dec.init_cache(self.cfg, self.n_ctx, self.cache_dtype, device=self.device)
+        # whole 256-slot tiles at any n_ctx: the decode window (a 256-slot
+        # bucket) is then always one the attention kernel takes; positions
+        # stay below n_ctx, so the extra slots are never attended to
+        return dec.init_cache(self.cfg, round_up(self.n_ctx, 256), self.cache_dtype,
+                              device=self.device)
 
     def _rng(self, seed: int | None) -> torch.Generator:
         if seed is None:
@@ -174,7 +179,7 @@ class Generator:
         if state.pos + self.block > self.n_ctx:
             return [], state, True, False  # context full
         # attend to the live prefix only, in 256-slot window buckets
-        win = min(self.n_ctx, round_up(state.pos + self.block, 256))
+        win = round_up(state.pos + self.block, 256)
         layers, final_norm = self.params["layers"], self.params["final_norm"]
         emitted: list[int] = []
         tok, pos, done, aborted = state.last_token, state.pos, state.done, False
@@ -196,3 +201,63 @@ class Generator:
         new_state = GenState(cache=state.cache, pos=pos, last_token=tok,
                              generator=state.generator, done=done)
         return emitted, new_state, done, aborted
+
+
+class SparseLogitsRunner:
+    """Single-prefill sparse-logits readout for the forced aligner: one
+    causal prefill, logits only at the requested positions, and for
+    `argmax_at` an argmax over the first `limit` classes on the device, so
+    only the class indices come back to the host.
+
+    Prompts and position lists are padded to 256-slot buckets as in the JAX
+    package. Padding changes no number (padding keys are masked, and padded
+    query rows stay finite under the -1e30 mask) but pins which rows exist."""
+
+    def __init__(self, params: dict, cfg: TextDecoderConfig, *, n_ctx: int = 2048,
+                 device="cpu"):
+        self.params = params
+        self.cfg = cfg
+        self.n_ctx = n_ctx
+        self.device = torch.device(device)
+
+    def _pad_positions(self, positions: np.ndarray) -> torch.Tensor:
+        n_pos = round_up(max(len(positions), 1), 256)
+        pos_padded = np.zeros(n_pos, dtype=np.int64)
+        pos_padded[: len(positions)] = positions
+        return torch.from_numpy(pos_padded).to(self.device)
+
+    def _prompt_pad(self, t: int) -> int:
+        return min(round_up(max(prompt_bucket(t), 1), 256), self.n_ctx)
+
+    def _logits(self, embd: torch.Tensor, length: int, positions: np.ndarray) -> torch.Tensor:
+        hidden, _ = dec.forward_prefill(self.params, self.cfg, embd, None, length=length)
+        sel = hidden[self._pad_positions(positions)]  # [n_positions, D]
+        return dec.lm_logits(self.params, sel, self.cfg.lm_head_dim)
+
+    def logits_at(self, embd: np.ndarray, positions: np.ndarray) -> np.ndarray:
+        """embd [T, D] prompt embeddings (host) -> f32 logits
+        [len(positions), lm_head_dim]."""
+        t = embd.shape[0]
+        pad = self._prompt_pad(t) - t
+        if pad:
+            embd = np.concatenate([embd, np.zeros((pad, embd.shape[1]), embd.dtype)], axis=0)
+        embd_dev = torch.from_numpy(np.ascontiguousarray(embd)).to(
+            device=self.device, dtype=self.params["embed"].dtype)
+        out = self._logits(embd_dev, t, positions)
+        return out[: len(positions)].cpu().numpy()
+
+    def argmax_at(self, ids: np.ndarray, audio_mask: np.ndarray, audio_embd: torch.Tensor,
+                  positions: np.ndarray, limit: int) -> np.ndarray:
+        """Prompt splice, prefill and restricted argmax on the device ->
+        int32 class index per position."""
+        t = len(ids)
+        padded_len = self._prompt_pad(t)
+        ids_p = np.zeros(padded_len, dtype=np.int64)
+        ids_p[:t] = ids
+        mask_p = np.zeros(padded_len, dtype=bool)
+        mask_p[:t] = audio_mask
+        embd = dec.splice_prompt(self.params, torch.from_numpy(ids_p).to(self.device),
+                                 torch.from_numpy(mask_p).to(self.device), audio_embd)
+        logits = self._logits(embd, t, positions)
+        out = torch.argmax(logits[:, :limit], dim=-1).to(torch.int32)
+        return out[: len(positions)].cpu().numpy()

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 import qwen3_asr_gguf_tpu.models.configs as C
+import qwen3_asr_gguf_tpu_torch.models.configs as TC
 from qwen3_asr_gguf_tpu.runtime.engine import QwenASREngine as JaxEngine
 from qwen3_asr_gguf_tpu_torch import QwenASREngine
 from qwen3_asr_gguf_tpu_torch.export.synthetic import make_synthetic_checkpoint
@@ -174,7 +175,8 @@ def test_prompt_overflow_fails_alone(tiny):
 
 @pytest.fixture(scope="module")
 def kernel_engine(tmp_path_factory):
-    C.PRESETS.setdefault("kernel-512", KERNEL_PRESET)
+    for presets in (C.PRESETS, TC.PRESETS):  # each package keeps its own table
+        presets.setdefault("kernel-512", KERNEL_PRESET)
     d = str(tmp_path_factory.mktemp("cb_kernel"))
     make_synthetic_checkpoint(d, "kernel-512", quant="q4_k")
     cfg = _config(d, "qwen3_asr_llm.q4_k.gguf", "int4")

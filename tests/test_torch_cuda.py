@@ -11,13 +11,16 @@ int8 activation where the fused norm's rsqrt rounds differently), and
 1e-4 * max|plain| for f32 outputs of the unfused kernel (f32 sum order only).
 The multi-row matmul is held to the matvec kernel row by row (the same
 per-row math, f32 sums in another order): 1e-4 * max|matvec| on f32 outputs.
+The decode attention: 1e-2 * max|plain| over a bf16 cache (bf16 rounding of
+the probabilities and the output), 1e-4 * max|plain| over an f32 cache (the
+online softmax's f32 sums in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from qwen3_asr_gguf_tpu.formats import quants as q
+from qwen3_asr_gguf_tpu_torch.formats import quants as q
 from qwen3_asr_gguf_tpu_torch.models import decoder as dec
 from qwen3_asr_gguf_tpu_torch.ops import attn, q4k
 
@@ -143,8 +146,8 @@ def test_rows_wrappers_raise_instead_of_falling_back(cuda):
 
 def _int8_rows_step(device, win):
     """One int8-KV rows step (B = 8) of a 2-layer decoder at kernel shapes."""
-    from qwen3_asr_gguf_tpu.models.configs import TextDecoderConfig
     from qwen3_asr_gguf_tpu_torch.export.synthetic import np_init_like
+    from qwen3_asr_gguf_tpu_torch.models.configs import TextDecoderConfig
     from qwen3_asr_gguf_tpu_torch.models import params as P
 
     cfg = TextDecoderConfig(vocab_size=512, hidden_size=512, num_layers=2, num_heads=4,
@@ -171,3 +174,99 @@ def test_int8_rows_step_launches_the_kernel_or_raises(cuda):
     assert bool(torch.isfinite(h).all())
     with pytest.raises(ValueError):
         _int8_rows_step(cuda, 384)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype,q_dtype,bound", [
+    (torch.bfloat16, torch.bfloat16, 1e-2), (torch.float32, torch.float32, 1e-4),
+    (torch.bfloat16, torch.float32, 1e-2), (torch.float32, torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 8, 128), (4, 2, 32), (8, 1, 64)])
+def test_decode_attention_vs_plain(cuda, kv_dtype, q_dtype, bound, hq, hkv, d):
+    s = 2048
+    g = torch.Generator().manual_seed(hq + d)
+    k = torch.randn(s, hkv, d, generator=g).to(cuda, kv_dtype)
+    v = torch.randn(s, hkv, d, generator=g).to(cuda, kv_dtype)
+    for win in (256, 1024, 2048):
+        # tile 0, a tile edge, the next tile's first slot, mid-tile, win - 1
+        for pos in sorted({0, 255, min(256, win - 1), win // 2 + 3, win - 1}):
+            q = (torch.randn(1, hq, d, generator=g) * 0.5).to(cuda, q_dtype)
+            before = attn.gqa_decode_attention.launches
+            got = attn.gqa_decode_attention(q, k, v, pos, d ** -0.5, win)
+            assert attn.gqa_decode_attention.launches == before + 1
+            assert got.shape == q.shape and got.dtype == q_dtype
+            assert bool(torch.isfinite(got).all())
+            want = attn.gqa_decode_attention_ref(q, k, v, pos, d ** -0.5, win)
+            assert _rel_err(got, want) <= bound, (win, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype,bound", [(torch.bfloat16, 1e-2), (torch.float32, 1e-4)])
+def test_decode_attention_past_eight_tiles(cuda, kv_dtype, bound):
+    """More live tiles than a cluster has blocks (8): each block walks
+    several tiles with its own online softmax before the cluster merges."""
+    s, hq, hkv, d = 4096, 16, 8, 128
+    g = torch.Generator().manual_seed(11)
+    k = torch.randn(s, hkv, d, generator=g).to(cuda, kv_dtype)
+    v = torch.randn(s, hkv, d, generator=g).to(cuda, kv_dtype)
+    q = (torch.randn(1, hq, d, generator=g) * 0.5).to(cuda, kv_dtype)
+    for win, pos in ((4096, 4095), (4096, 2300), (2304, 2303), (3072, 100)):
+        got = attn.gqa_decode_attention(q, k, v, pos, d ** -0.5, win)
+        want = attn.gqa_decode_attention_ref(q, k, v, pos, d ** -0.5, win)
+        assert _rel_err(got, want) <= bound, (win, pos)
+
+
+@pytest.mark.cuda
+def test_decode_attention_ignores_slots_past_pos(cuda):
+    """Slots after `pos` hold anything (stale tokens, NaN): the kernel never
+    reads them into the result."""
+    k = torch.randn(512, 8, 128, device=cuda).to(torch.bfloat16)
+    v = torch.randn(512, 8, 128, device=cuda).to(torch.bfloat16)
+    q = torch.randn(1, 16, 128, device=cuda).to(torch.bfloat16)
+    want = attn.gqa_decode_attention(q, k, v, 300, 0.088, 512)
+    k[301:], v[301:] = float("nan"), float("nan")
+    got = attn.gqa_decode_attention(q, k, v, 300, 0.088, 512)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_decode_attention_raises_instead_of_falling_back(cuda):
+    k = torch.zeros(512, 8, 128, device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(1, 16, 128, device=cuda, dtype=torch.bfloat16)
+    before = attn.gqa_decode_attention.launches
+    with pytest.raises(ValueError):  # window not a multiple of 256
+        attn.gqa_decode_attention(q, k, k, 3, 0.1, 384)
+    with pytest.raises(ValueError):  # window past the cache
+        attn.gqa_decode_attention(q, k, k, 3, 0.1, 768)
+    with pytest.raises(ValueError):  # a cache on the CPU
+        attn.gqa_decode_attention(q, k.cpu(), k.cpu(), 3, 0.1, 256)
+    with pytest.raises(ValueError):  # a strided cache
+        attn.gqa_decode_attention(q[..., :64].contiguous(), k[:, :, :64], k[:, :, :64], 3, 0.1,
+                                  256)
+    with pytest.raises(TypeError):  # an int8 cache
+        attn.gqa_decode_attention(q, k.to(torch.int8), k.to(torch.int8), 3, 0.1, 256)
+    assert attn.gqa_decode_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_decode_step_launches_the_attention_kernel_or_raises(cuda):
+    """On the card a bf16-KV decode step attends through kernel 4 at every
+    layer, and raises on a window that is not whole 256-slot tiles."""
+    from qwen3_asr_gguf_tpu_torch.export.synthetic import np_init_like
+    from qwen3_asr_gguf_tpu_torch.models import params as P
+    from qwen3_asr_gguf_tpu_torch.models.configs import TextDecoderConfig
+
+    cfg = TextDecoderConfig(vocab_size=512, hidden_size=512, num_layers=2, num_heads=4,
+                            num_kv_heads=2, head_dim=128, intermediate_size=1024)
+    params = P.fuse_layer_weights(
+        P.from_jax_params(np_init_like(dec.init_shapes(cfg), 0), device=cuda))
+    cache = dec.init_cache(cfg, 512, torch.bfloat16, device=cuda)
+    embd = torch.randn(cfg.hidden_size, generator=torch.Generator().manual_seed(9)).to(cuda)
+    before = attn.gqa_decode_attention.launches
+    h, _ = dec.forward_step_layers(params["layers"], params["final_norm"], cfg, embd, cache, 7,
+                                   attn_window=256)
+    assert attn.gqa_decode_attention.launches == before + cfg.num_layers
+    assert bool(torch.isfinite(h).all())
+    with pytest.raises(ValueError):
+        dec.forward_step_layers(params["layers"], params["final_norm"], cfg, embd, cache, 8,
+                                attn_window=300)

@@ -2,7 +2,7 @@
 against the JAX package on the same weights and audio. Bounds: mel within
 1e-5 of `log_mel_np`; encoder output within 1e-4 (f32)."""
 
-from dataclasses import replace
+from dataclasses import asdict, replace
 
 import jax
 import jax.numpy as jnp
@@ -92,7 +92,7 @@ def runners(tmp_path_factory):
     tP.save_encoder_safetensors(path, cfg, _tree(cfg, seed=3))
     jcfg, jparams = jP.load_encoder_quantized(path, kind="int4")
     tcfg, tparams = tP.load_encoder_quantized(path, kind="int4")
-    assert jcfg == tcfg == cfg
+    assert asdict(jcfg) == asdict(tcfg) == asdict(cfg)  # one class per package
     return JRunner(jparams, jcfg), TRunner(tparams, tcfg)
 
 

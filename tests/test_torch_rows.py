@@ -243,11 +243,13 @@ def test_int8_kv_engine_greedy_tokens_equal_jax(kernel_dir):
 @pytest.fixture(scope="module")
 def kernel_dir(tmp_path_factory):
     import qwen3_asr_gguf_tpu.models.configs as C
+    import qwen3_asr_gguf_tpu_torch.models.configs as TC
     from qwen3_asr_gguf_tpu_torch.export.synthetic import make_synthetic_checkpoint
 
     from test_torch_engine import KERNEL_PRESET
 
-    C.PRESETS.setdefault("kernel-512", KERNEL_PRESET)
+    for presets in (C.PRESETS, TC.PRESETS):  # each package keeps its own table
+        presets.setdefault("kernel-512", KERNEL_PRESET)
     d = tmp_path_factory.mktemp("kernel_ckpt_rows")
     make_synthetic_checkpoint(str(d), "kernel-512", quant="q4_k", seed=0)
     return str(d)

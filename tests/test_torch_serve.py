@@ -21,8 +21,8 @@ from http.server import ThreadingHTTPServer
 import numpy as np
 import pytest
 
-from qwen3_asr_gguf_tpu.cli.serve import make_handler
 from qwen3_asr_gguf_tpu_torch.cli import serve
+from qwen3_asr_gguf_tpu_torch.cli.http import make_handler
 from qwen3_asr_gguf_tpu_torch.export.synthetic import make_synthetic_checkpoint
 
 from test_torch_engine import _audio

@@ -8,12 +8,14 @@ import filecmp
 import os
 import subprocess
 import sys
+from dataclasses import asdict
 from pathlib import Path
 
 import numpy as np
 import pytest
 
 import qwen3_asr_gguf_tpu.models.configs as C
+import qwen3_asr_gguf_tpu_torch.models.configs as TC
 from qwen3_asr_gguf_tpu.export.convert import make_synthetic_checkpoint as jax_make
 from qwen3_asr_gguf_tpu_torch.export.synthetic import make_synthetic_checkpoint
 from qwen3_asr_gguf_tpu_torch.models import safetensors_np
@@ -38,11 +40,12 @@ KERNEL_PRESET = C.ThinkerConfig(
     ("kernel-512", "q4_k", False),
 ])
 def test_checkpoint_byte_identical_to_jax(tmp_path, preset, quant, aligner):
-    C.PRESETS.setdefault("kernel-512", KERNEL_PRESET)
+    for presets in (C.PRESETS, TC.PRESETS):  # each package keeps its own table
+        presets.setdefault("kernel-512", KERNEL_PRESET)
     a, b = tmp_path / "jax", tmp_path / "port"
     want = jax_make(str(a), preset, quant=quant, seed=3, aligner=aligner)
     got = make_synthetic_checkpoint(str(b), preset, quant=quant, seed=3, aligner=aligner)
-    assert got == want
+    assert asdict(got) == asdict(want)  # one class per package
     names = sorted(os.listdir(a))
     assert names == sorted(os.listdir(b)) and len(names) == 4
     for name in names:
