@@ -43,7 +43,22 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    concurrent 10 s requests and one 50.2 s request over HTTP, with
    throughput, latency and the batcher's counters;
 10. a continuous batcher on an int8-KV engine (the `tools/bench_serve.py
-   --kv int8` configuration): 16 greedy 10 s requests.
+   --kv int8` configuration): 16 greedy 10 s requests;
+11. the fused int4 dequant + matmul (q4_matmul) against its plain version at
+   the 1.7B decode shapes (T = 1: qkv, o, gate_up, down, the padded LM head)
+   and the encoder's fc1, fc2 and q_w at T = 26 and 52, and the fused int8
+   MLP (fused_mlp_matvec) at (D, M) = (2048, 6144) and (1024, 3072) with the
+   number of flipped requantized values; both timed as in phase 3;
+12. QwenASREngine at precision "int8" (bf16 KV, aligner off) on the same
+   clip: the fused MLP and the decode attention once per layer per step, a
+   step check against dense weights with the unfused MLP, and the same call
+   with fused_mlp=False;
+13. QwenASREngine at precision "q4_k": q4_matmul 4 x 28 + 1 times per decode
+   step and once per prefill, and the same step check;
+14. StreamingTranscriber on the q4_k engine (the `tools/bench_stream.py`
+   settings: 2 s chunks, 16 new tokens per step, greedy): a 12 s clip, time
+   to first text and the per-chunk latencies, and a second transcriber fed
+   the same PCM.
 
 Every kernel's launches are counted in the run of its path (counts set to 0
 just before it). The last lines are the kernels summary, the nvidia-smi
@@ -82,6 +97,8 @@ REPLACES = {
     "q4k_matmul_rows": "qwen3_asr_gguf_tpu/ops/pallas_q4k.py:419",
     "gqa_decode_attention": "qwen3_asr_gguf_tpu/ops/pallas_attn.py:94",
     "gqa_rows_q8_attention": "qwen3_asr_gguf_tpu/ops/pallas_attn.py:215",
+    "q4_matmul": "qwen3_asr_gguf_tpu/ops/pallas_qmm.py:85",
+    "fused_mlp_matvec": "qwen3_asr_gguf_tpu/ops/pallas_mlp.py:85",
 }
 SOURCES = {
     "q4k_matvec": "qwen3_asr_gguf_tpu_torch/csrc/q4k_matvec.cu",
@@ -89,12 +106,17 @@ SOURCES = {
     "q4k_matmul_rows": "qwen3_asr_gguf_tpu_torch/csrc/q4k_matmul_rows.cu",
     "gqa_decode_attention": "qwen3_asr_gguf_tpu_torch/csrc/attn_decode.cu",
     "gqa_rows_q8_attention": "qwen3_asr_gguf_tpu_torch/csrc/attn_rows_q8.cu",
+    "q4_matmul": "qwen3_asr_gguf_tpu_torch/csrc/q4_matmul.cu",
+    "fused_mlp_matvec": "qwen3_asr_gguf_tpu_torch/csrc/fused_mlp.cu",
 }
+QMM_ENCODER_T = (26, 52)  # encoder rows of 2 s and 4 s of audio
+MLP_FLIP_LIMIT = 4  # requantized act values that may differ from the plain version's
+STREAM_SECONDS, STREAM_CHUNK_SECONDS, STREAM_NEW_TOKENS = 12.0, 2.0, 16
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense): the bound of a
 # kernel is the larger of its bytes over the memory rate and its operations
 # over the peak rate for their type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}  # f32: outside the tensor cores
 
 
 def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
@@ -592,6 +614,391 @@ def serve_int8_phase(torch, dev, model_dir: Path) -> dict:
     return row
 
 
+def qmm_kernel_phase(torch, dev, cfg) -> list[dict]:
+    """q4_matmul against its plain version: the decode step's one-row
+    products of the 1.7B q4_k engine and the encoder's at 26 and 52 rows."""
+    from qwen3_asr_gguf_tpu_torch.ops import qmm
+    from qwen3_asr_gguf_tpu_torch.ops import qtensor as qt
+
+    text, audio = cfg.text, cfg.audio
+    d, m = text.hidden_size, text.intermediate_size
+    hq, hkv, hd = text.num_heads, text.num_kv_heads, text.head_dim
+    cases = [("qkv_proj", 1, (hq + 2 * hkv) * hd, d), ("o_proj", 1, d, hq * hd),
+             ("gateup_proj", 1, 2 * m, d), ("down_proj", 1, d, m),
+             ("lm_head", 1, -(-text.vocab_size // 256) * 256, d)]  # padded to 256 rows
+    for t in QMM_ENCODER_T:
+        cases += [("enc_fc1", t, audio.encoder_ffn_dim, audio.d_model),
+                  ("enc_fc2", t, audio.d_model, audio.encoder_ffn_dim),
+                  ("enc_q_w", t, audio.d_model, audio.d_model)]
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    rows = []
+    for shape, t, n, k in cases:
+        nbytes = n * k // 2 + 8 * n * (k // 32)
+
+        def random_weight():  # any bytes are a valid weight: drawn on the card
+            return qt.Q4Weight(
+                packed=torch.randint(0, 256, (n, k // 2), generator=g, device=dev,
+                                     dtype=torch.uint8),
+                scale=torch.rand((n, k // 32), generator=g, device=dev) * 1e-2 + 1e-3,
+                minv=torch.rand((n, k // 32), generator=g, device=dev) * 8e-2)
+
+        weights = [random_weight() for _ in range(max(2, -(-(128 << 20) // nbytes)))]
+        x = torch.randn((t, k), generator=g, device=dev).to(torch.bfloat16)
+        kern = lambda w: qmm.q4_matmul(x, w)  # noqa: E731
+        plain = lambda w: qmm.q4_matmul_ref(x, w)  # noqa: E731
+        err, scale = rel_check(torch, f"q4_matmul/{shape}/T={t}", kern(weights[0]),
+                               plain(weights[0]))
+        ms = time_ms(kern, weights, torch)
+        # every input read once, the output written once; 2 T N K f32 operations
+        least, by = bound_ms(nbytes + 2 * t * (k + n), 2 * t * n * k, "f32")
+        n_dense = max(2, -(-(128 << 20) // (2 * n * k)))
+        dense = [qt.dequant_q4(w, dtype=torch.bfloat16) for w in weights[:n_dense]]
+        row = {"phase": "kernel_qmm", "name": "q4_matmul", "shape": shape, "t": t, "n": n,
+               "k": k, "max_abs_err": err, "max_abs_plain": scale,
+               "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain", "ok": True,
+               "ms": ms, "plain_ms": time_ms(plain, weights, torch),
+               "bound_ms": least, "bound_by": by,
+               "library_ms": time_ms(lambda w: torch.matmul(x, w.T), dense, torch),
+               "library": "torch.matmul on the dequantized bf16 weight (2.7x the weight bytes)",
+               "weight_mb": nbytes / 1e6, "gb_per_s": nbytes / (ms * 1e6)}
+        emit(row)
+        rows.append(row)
+        del weights, dense
+    return rows
+
+
+def mlp_kernel_phase(torch, dev) -> list[dict]:
+    """fused_mlp_matvec against its plain version at the 1.7B and 0.6B MLP
+    shapes, beside the same MLP through three int8_matmul products."""
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+    from qwen3_asr_gguf_tpu_torch.ops import mlp
+    from qwen3_asr_gguf_tpu_torch.ops import qtensor as qt
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    rows = []
+    for d, m in ((2048, 6144), (1024, 3072)):
+        nbytes = 3 * d * m + 4 * (2 * m + d)
+
+        def random_args():  # (wg, sg, wu, su, wd, sd)
+            out = []
+            for shape in ((m, d), (m, d), (d, m)):
+                out.append(torch.randint(-127, 128, shape, generator=g, device=dev,
+                                         dtype=torch.int8))
+                out.append(torch.rand(shape[0], generator=g, device=dev) * 4e-4 + 1e-4)
+            return tuple(out)
+
+        sets = [random_args() for _ in range(max(2, -(-(128 << 20) // nbytes)))]
+        x = torch.randn((1, d), generator=g, device=dev).to(torch.bfloat16)
+        kern = lambda a: mlp.fused_mlp_matvec(x, *a)  # noqa: E731
+        plain = lambda a: mlp.fused_mlp_matvec_ref(x, *a)  # noqa: E731
+
+        def unfused(a):  # gate|up as one int8_matmul, silu * up, down: the unfused decode MLP
+            wg, sg, wu, su, wd, sd = a
+            layer = {"gateup_proj": qt.Int8Weight(q=torch.cat([wg, wu]), scale=torch.cat([sg, su])),
+                     "down_proj": qt.Int8Weight(q=wd, scale=sd)}
+            return lambda: dec._mlp(layer, x)
+
+        err, scale = rel_check(torch, f"fused_mlp_matvec/D={d}/M={m}", kern(sets[0]),
+                               plain(sets[0]))
+        _, act = mlp._launch(x, *sets[0], mlp.TILE_M)
+        kq, _ = mlp.quantize_act_tiles(act[None, :], mlp.TILE_M)
+        pq, _ = mlp.quantize_act_tiles(mlp.mlp_act_ref(x, *sets[0][:4]), mlp.TILE_M)
+        flipped = int((kq != pq).sum())
+        layers = [unfused(a) for a in sets]
+        lib_err = (layers[0]().float() - plain(sets[0]).float()).abs().max().item()
+        # the three weights and their scales read once, x read, out written;
+        # 2 * 3 D M int8 operations
+        least, by = bound_ms(nbytes + 2 * 2 * d, 6 * d * m, "int8")
+        ms = time_ms(kern, sets, torch)
+        row = {"phase": "kernel_mlp", "name": "fused_mlp_matvec", "shape": f"D={d}/M={m}",
+               "hidden": d, "m": m, "tile_m": mlp.TILE_M, "max_abs_err": err,
+               "max_abs_plain": scale,
+               "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain; at most "
+                        f"{MLP_FLIP_LIMIT} flipped act values",
+               "ok": flipped <= MLP_FLIP_LIMIT, "flipped_actq": flipped, "actq_values": m,
+               "ms": ms, "plain_ms": time_ms(plain, sets, torch),
+               "bound_ms": least, "bound_by": by,
+               "library_ms": time_ms(lambda f: f(), layers, torch),
+               "library": "the unfused MLP: two int8_matmul calls (gate|up, down), each one "
+                          "torch._int_mm on 32 zero-padded rows, per-row requantization",
+               "library_max_abs_diff_vs_plain": lib_err,
+               "weight_mb": nbytes / 1e6, "gb_per_s": nbytes / (ms * 1e6)}
+        emit(row)
+        require(row["ok"], f"fused_mlp_matvec D={d} M={m}: {flipped} flipped act values")
+        rows.append(row)
+        del sets, layers
+    return rows
+
+
+class StepCounter:
+    """Counts the decode steps, prefills and LM-head products of a run by
+    wrapping the decoder's functions (the runtime calls them through the
+    module), independently of the kernels' own launch counts."""
+
+    NAMES = ("forward_step_layers", "forward_prefill", "forward_prefill_at", "lm_logits")
+
+    def __enter__(self):
+        from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+
+        self.dec, self.inner, self.n = dec, {}, dict.fromkeys(self.NAMES, 0)
+        for name in self.NAMES:
+            self.inner[name] = getattr(dec, name)
+            setattr(dec, name, self._counting(name))
+        return self
+
+    def _counting(self, name):
+        def call(*args, **kw):
+            self.n[name] += 1
+            return self.inner[name](*args, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.inner.items():
+            setattr(self.dec, name, fn)
+
+    @property
+    def steps(self) -> int:
+        return self.n["forward_step_layers"]
+
+    @property
+    def prefills(self) -> int:
+        return self.n["forward_prefill"] + self.n["forward_prefill_at"]
+
+
+def precision_step_check(torch, engine, phase: str) -> None:
+    """One decode step of a quantized engine through its kernels (as its
+    Generator runs it) against the same step on dense bf16 weights with the
+    unfused MLP, from the same prefilled cache."""
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+    from qwen3_asr_gguf_tpu_torch.models import params as P
+    from qwen3_asr_gguf_tpu_torch.ops import qtensor as qt
+
+    gen = engine.generator
+    cfg = gen.cfg
+    dense = P.dequant_prefill_params(gen.params)
+    g = torch.Generator(device=engine.device)
+    g.manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (64,), generator=g, device=engine.device)
+    cache = gen.new_cache()
+    dec.forward_prefill(dense, cfg, dec.embed_tokens(dense, ids), cache)
+    twin = {k: [t.clone() for t in v] for k, v in cache.items()}
+    embd = dense["embed"][int(ids[-1])]
+    h_k, _ = dec.forward_step_layers(gen.layers_list, gen.params["final_norm"], cfg, embd, cache,
+                                     64, attn_window=256, fused_mlp=gen.fused_mlp)
+    h_d, _ = dec.forward_step_layers(dense["layers"], dense["final_norm"], cfg, embd, twin, 64,
+                                     attn_window=256)
+    head = gen.params["lm_head"]
+    dense_head = qt.dequant_int8(head) if isinstance(head, qt.Int8Weight) else qt.dequant_q4(head)
+    lk = dec.lm_logits(gen.params, h_k, cfg.vocab_size)
+    ld = dec.lm_logits({"lm_head": dense_head}, h_d, cfg.vocab_size)
+    cos = torch.nn.functional.cosine_similarity(lk, ld, dim=0).item()
+    finite = bool(torch.isfinite(lk).all())
+    emit({"phase": phase, "logits": list(lk.shape), "finite": finite,
+          "cosine_kernel_vs_dense": cos, "bound": STEP_COSINE_BOUND, "fused_mlp": gen.fused_mlp})
+    require(finite and lk.shape == (cfg.vocab_size,), f"{phase}: logits malformed")
+    require(cos >= STEP_COSINE_BOUND, f"{phase}: cosine {cos} < {STEP_COSINE_BOUND}")
+
+
+def timed_precision_asr(torch, engine, audio, wrappers) -> dict:
+    """One timed call (temperature 0.4) with the wrappers' counts set to 0
+    just before and read just after, beside the counted steps and prefills."""
+    for w in wrappers:
+        w.launches = 0
+    with StepCounter() as counter:
+        t0 = time.time()
+        res = engine.asr(audio, context="", language="Chinese", temperature=0.4)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    perf = res.performance
+    require(isinstance(res.text, str) and len(res.text) > 0, "empty transcript")
+    require(perf["decode_tokens"] > 0 and counter.steps > 0, "no decode steps")
+    return {"temperature": 0.4, "audio_s": CLIP_SECONDS, "wall_s": wall,
+            "rtf": wall / CLIP_SECONDS, "decode_steps": counter.steps,
+            "prefills": counter.prefills, "lm_head_products": counter.n["lm_logits"],
+            "ms_per_step": perf["decode_time"] * 1e3 / counter.steps,
+            "prefill_s": perf["prefill_time"], "decode_s": perf["decode_time"],
+            "encode_s": perf["encode_time"], "decode_tokens": perf["decode_tokens"],
+            "text_chars": len(res.text), "launches": {w.__name__: w.launches for w in wrappers}}
+
+
+def precision_engine(torch, dev, model_dir: Path, precision: str):
+    from qwen3_asr_gguf_tpu_torch import ASREngineConfig, QwenASREngine
+
+    t0 = time.time()
+    engine = QwenASREngine(ASREngineConfig(
+        model_dir=str(model_dir), llm_fn="qwen3_asr_llm.q4_k.gguf", precision=precision,
+        n_ctx=2048, chunk_size=40.0, memory_num=1, verbose=False, max_new_tokens=96,
+        decode_block=96, kv_prefix_reuse=True, kv_cache_dtype="bf16", enable_aligner=False,
+    ), device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": f"engine_init_{precision}", "seconds": time.time() - t0,
+          "gpu_mem_gb": torch.cuda.memory_allocated(dev) / 1e9})
+    return engine
+
+
+def int8_dot_routes(torch, engine, steps: int = 8) -> None:
+    """Host-clock time of a decode step plus its LM-head product with the int8
+    products through torch._int_mm (what the card runs) and through the f64
+    route (what the CPU runs), each after a warm-up round."""
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+    from qwen3_asr_gguf_tpu_torch.ops import qtensor as qt
+
+    gen = engine.generator
+    cache = gen.new_cache()
+    embd = gen.params["embed"][1]
+
+    def ms_per_step() -> float:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for pos in range(steps):
+            h, _ = dec.forward_step_layers(gen.layers_list, gen.params["final_norm"], gen.cfg,
+                                           embd, cache, pos, attn_window=256,
+                                           fused_mlp=gen.fused_mlp)
+            dec.lm_logits(gen.params, h, gen.cfg.lm_head_dim)
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3 / steps
+
+    ms_per_step()
+    int_mm = ms_per_step()
+    fast = qt.int8_dot
+    qt.int8_dot = lambda xq, wq: torch.matmul(xq.double(), wq.double().T).float()
+    try:
+        ms_per_step()
+        f64 = ms_per_step()
+    finally:
+        qt.int8_dot = fast
+    emit({"phase": "int8_dot_routes", "steps": steps, "fused_mlp": gen.fused_mlp,
+          "ms_per_step_int_mm": int_mm, "ms_per_step_f64": f64})
+
+
+def asr_int8_phase(torch, dev, model_dir: Path, audio) -> dict:
+    """The int8 engine: kernel 7 and kernel 4 once per layer per decode step;
+    then the same call with fused_mlp=False (a Generator over the same
+    weights), both walls in this run."""
+    from qwen3_asr_gguf_tpu_torch.ops import attn, mlp
+    from qwen3_asr_gguf_tpu_torch.runtime.generate import Generator
+
+    engine = precision_engine(torch, dev, model_dir, "int8")
+    gen = engine.generator
+    require(gen.fused_mlp, "the int8 engine did not turn the fused MLP on")
+    layers = gen.cfg.num_layers
+    engine.asr(audio, context="", language="Chinese", temperature=0.4)  # warm-up
+    wrappers = (mlp.fused_mlp_matvec, attn.gqa_decode_attention)
+    row = {"phase": "asr_int8", **timed_precision_asr(torch, engine, audio, wrappers)}
+    unfused = Generator(gen.params, gen.cfg, n_ctx=gen.n_ctx, eos_ids=tuple(gen.eos_ids),
+                        block=gen.block, cache_dtype=gen.cache_dtype, fused_mlp=False,
+                        device=dev)
+    engine.generator = unfused
+    off = timed_precision_asr(torch, engine, audio, wrappers)
+    engine.generator = gen
+    again = timed_precision_asr(torch, engine, audio, wrappers)
+    row["fused_mlp_off"] = {k: off[k] for k in ("wall_s", "rtf", "ms_per_step", "decode_steps",
+                                                "launches")}
+    row["fused_mlp_on_again"] = {k: again[k] for k in ("wall_s", "rtf", "ms_per_step",
+                                                       "decode_steps")}
+    emit(row)
+    for name, count in row["launches"].items():
+        require(count == layers * row["decode_steps"],
+                f"asr_int8: {count} launches of {name} for {row['decode_steps']} decode steps "
+                f"of {layers} layers")
+    require(off["launches"]["fused_mlp_matvec"] == 0, "fused_mlp=False launched the fused MLP")
+    precision_step_check(torch, engine, "int8_step_check")
+    int8_dot_routes(torch, engine)
+    del engine, gen, unfused
+    torch.cuda.empty_cache()
+    return row
+
+
+def stream_phase(torch, engine) -> None:
+    """StreamingTranscriber over the q4_k engine at the bench_stream settings:
+    12 s in 2 s chunks then finish(); the same PCM through a second
+    transcriber must end in the same text (greedy; the numpy seed pins the
+    seeds of any breaker retry)."""
+    import numpy as np
+
+    from qwen3_asr_gguf_tpu_torch.ops import qmm
+    from qwen3_asr_gguf_tpu_torch.runtime.streaming import StreamingTranscriber
+
+    engine.config.max_new_tokens = STREAM_NEW_TOKENS
+    engine.generator.block = STREAM_NEW_TOKENS  # one decode block per streaming step
+    audio = synthetic_clip(STREAM_SECONDS)
+    piece = int(STREAM_CHUNK_SECONDS * 16_000)
+
+    def run():
+        np.random.seed(17)
+        st = StreamingTranscriber(engine, language="Chinese", temperature=0.0,
+                                  chunk_size_sec=STREAM_CHUNK_SECONDS)
+        state = st.init_state()
+        lat, first_text_s, t_start = [], None, time.time()
+        for off in range(0, len(audio), piece):
+            t0 = time.time()
+            st.feed(state, audio[off: off + piece])
+            torch.cuda.synchronize()
+            lat.append(time.time() - t0)
+            if first_text_s is None and state.text:
+                first_text_s = time.time() - t_start
+        t0 = time.time()
+        text = st.finish(state)
+        return text, state, lat, first_text_s, time.time() - t0
+
+    run()  # warm-up: the first use of these shapes by cuBLAS and the allocator
+    qmm.q4_matmul.launches = 0
+    with StepCounter() as counter:
+        text, state, lat, first_text_s, finish_s = run()
+    launches = qmm.q4_matmul.launches
+    text2, state2, lat2, _, _ = run()
+    ordered = sorted(lat)
+    row = {"phase": "stream", "audio_s": STREAM_SECONDS, "chunk_s": STREAM_CHUNK_SECONDS,
+           "new_tokens_per_step": STREAM_NEW_TOKENS, "chunks_seen": state.chunks_seen,
+           "stream_ttft_s": lat[0], "time_to_first_text_s": first_text_s,
+           "chunk_latency_s": lat, "second_run_chunk_latency_s": lat2,
+           "stream_p50_chunk_latency_s": ordered[len(ordered) // 2],
+           "stream_p95_chunk_latency_s": ordered[min(len(ordered) - 1,
+                                                     math.ceil(0.95 * len(ordered)) - 1)],
+           "finish_s": finish_s, "text_chars": len(text), "tokens": len(state.tokens),
+           "decode_steps": counter.steps, "prefills": counter.prefills,
+           "launches": {"q4_matmul": launches}}
+    emit(row)
+    layers = engine.dec_cfg.num_layers
+    require(state.chunks_seen == 6 and state.finished, f"chunks_seen {state.chunks_seen}")
+    require(isinstance(text, str) and text and first_text_s is not None, "no streamed text")
+    require(launches == 4 * layers * counter.steps + counter.n["lm_logits"] and launches > 0,
+            f"stream: {launches} q4_matmul launches for {counter.steps} steps and "
+            f"{counter.prefills} prefills")
+    require(text2 == text and state2.tokens == state.tokens,
+            "two transcribers fed the same PCM disagree")
+
+
+def asr_q4k_phase(torch, dev, model_dir: Path, audio) -> dict:
+    """The q4_k engine: every decode matvec through q4_matmul (qkv, o,
+    gate_up and down of each layer and the LM head per step, the head once
+    more after each prefill); then streaming on the same engine."""
+    from qwen3_asr_gguf_tpu_torch.ops import attn, qmm
+
+    engine = precision_engine(torch, dev, model_dir, "q4_k")
+    layers = engine.dec_cfg.num_layers
+    engine.asr(audio, context="", language="Chinese", temperature=0.4)  # warm-up
+    wrappers = (qmm.q4_matmul, attn.gqa_decode_attention)
+    row = {"phase": "asr_q4k", **timed_precision_asr(torch, engine, audio, wrappers)}
+    per_step = 4 * layers + 1
+    row["q4_matmul_per_step"] = per_step
+    emit(row)
+    require(row["launches"]["q4_matmul"] == per_step * row["decode_steps"] + row["prefills"],
+            f"asr_q4k: {row['launches']['q4_matmul']} q4_matmul launches for "
+            f"{row['decode_steps']} steps ({per_step} each) and {row['prefills']} prefills")
+    require(row["lm_head_products"] == row["decode_steps"] + row["prefills"],
+            "asr_q4k: LM-head products do not add up")
+    require(row["launches"]["gqa_decode_attention"] == layers * row["decode_steps"],
+            "asr_q4k: decode attention launches do not add up")
+    precision_step_check(torch, engine, "q4k_step_check")
+    stream_phase(torch, engine)
+    del engine
+    torch.cuda.empty_cache()
+    return row
+
+
 def ensure_checkpoint() -> Path:
     from qwen3_asr_gguf_tpu_torch import native
     from qwen3_asr_gguf_tpu_torch.export.synthetic import make_synthetic_checkpoint
@@ -771,6 +1178,8 @@ def main() -> int:
     kernel_rows += rows_kernel_phase(torch, dev, cfg.text)
     kernel_rows += attn_kernel_phase(torch, dev, cfg.text)
     kernel_rows += decode_attn_kernel_phase(torch, dev, cfg.text)
+    kernel_rows += qmm_kernel_phase(torch, dev, cfg)
+    kernel_rows += mlp_kernel_phase(torch, dev)
 
     model_dir = ensure_checkpoint()
     t0 = time.time()
@@ -862,14 +1271,20 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
+    ran_int8 = asr_int8_phase(torch, dev, model_dir, audio)
+    ran_q4k = asr_q4k_phase(torch, dev, model_dir, audio)
     served = serve_phase(torch, dev, model_dir)
     served_int8 = serve_int8_phase(torch, dev, model_dir)
     # each kernel's launches from the run of its own path
     launches["q4k_matmul_rows"] = served["launches"]["q4k_matmul_rows"]
     launches["gqa_rows_q8_attention"] = served_int8["launches"]["gqa_rows_q8_attention"]
+    launches["q4_matmul"] = ran_q4k["launches"]["q4_matmul"]
+    launches["fused_mlp_matvec"] = ran_int8["launches"]["fused_mlp_matvec"]
     paths = {"q4k_matvec": "asr (temperature 0.4)", "q4k_matvec_normed": "asr (temperature 0.4)",
              "gqa_decode_attention": "asr (temperature 0.4)",
-             "q4k_matmul_rows": "serve (bf16 KV)", "gqa_rows_q8_attention": "serve_int8_kv"}
+             "q4k_matmul_rows": "serve (bf16 KV)", "gqa_rows_q8_attention": "serve_int8_kv",
+             "q4_matmul": "asr_q4k (temperature 0.4)",
+             "fused_mlp_matvec": "asr_int8 (temperature 0.4)"}
 
     def case(r):
         if "t" in r:
@@ -885,9 +1300,12 @@ def main() -> int:
         mine = [r for r in kernel_rows if r["name"] == name]
         # one call at each of the kernel's main-path shapes, summed: the
         # multi-row matmul at T = 8 (the serving batch), the attention
-        # kernels at the 1024-slot window
-        summed = [r for r in mine if r.get("t", ROWS_T[0]) == ROWS_T[0]
-                  and r.get("win", ATTN_HEADLINE_WIN) == ATTN_HEADLINE_WIN]
+        # kernels at the 1024-slot window, q4_matmul at T = 1 (the decode
+        # step), the fused MLP at the 1.7B shape
+        main_t = 1 if name == "q4_matmul" else ROWS_T[0]
+        summed = [r for r in mine if r.get("t", main_t) == main_t
+                  and r.get("win", ATTN_HEADLINE_WIN) == ATTN_HEADLINE_WIN
+                  and r.get("hidden", cfg.text.hidden_size) == cfg.text.hidden_size]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name], "path": paths[name],

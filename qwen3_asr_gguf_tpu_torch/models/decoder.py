@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import attn as attn_ops
-from ..ops.qtensor import matmul, matmul_normed
+from ..ops import mlp as mlp_ops
+from ..ops.qtensor import Int8Weight, matmul, matmul_normed
 from .configs import TextDecoderConfig
 
 Params = dict[str, Any]
@@ -191,10 +192,35 @@ def _layer_qkv(layer: Params, cfg: TextDecoderConfig, x: torch.Tensor, cos, sin,
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _mlp(layer: Params, x: torch.Tensor, pre_norm: tuple | None = None) -> torch.Tensor:
-    if pre_norm is not None and "gateup_proj" not in layer:
+def _can_fuse_mlp(layer: Params, x: torch.Tensor) -> bool:
+    """Whether the fused int8 MLP kernel applies: separate per-layer int8
+    gate/up/down weights, a single token row, a tile-aligned intermediate
+    dimension."""
+    if x.ndim != 2 or x.shape[0] != 1:
+        return False
+    if not all(isinstance(layer.get(k), Int8Weight)
+               for k in ("gate_proj", "up_proj", "down_proj")):
+        return False
+    m, d = layer["gate_proj"].q.shape
+    return m % 512 == 0 and d % 128 == 0
+
+
+def _mlp(layer: Params, x: torch.Tensor, pre_norm: tuple | None = None, *,
+         fused_kernel: bool = False) -> torch.Tensor:
+    """`fused_kernel`: the whole MLP of one token through
+    `ops.mlp.fused_mlp_matvec` (each int8 weight read once); the rms_norm is
+    then applied first, not fused into a matvec. Only the single-stream
+    decode step asks for it, on layers from `split_mlp_weights`; a layer it
+    cannot take is an error, not a quiet unfused MLP."""
+    if pre_norm is not None and ("gateup_proj" not in layer or fused_kernel):
         x = rms_norm(x, *pre_norm)
         pre_norm = None
+    if fused_kernel:
+        if not _can_fuse_mlp(layer, x):
+            raise ValueError("fused MLP asked for on a layer it cannot take (needs split int8 "
+                             "gate/up/down weights, one row, M % 512 == 0, D % 128 == 0)")
+        g, u, d = layer["gate_proj"], layer["up_proj"], layer["down_proj"]
+        return mlp_ops.fused_mlp_matvec(x, g.q, g.scale, u.q, u.scale, d.q, d.scale)
     if "gateup_proj" in layer:
         m = layer["gateup_proj"].shape[0] // 2  # [2M, D] (dense or packed)
         if pre_norm is not None:
@@ -270,16 +296,40 @@ def forward_prefill_at(params: Params, cfg: TextDecoderConfig, embd: torch.Tenso
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
 
 
+def split_mlp_weights(layer_list: list[Params]) -> list[Params]:
+    """Each layer's fused `gateup_proj` as separate gate/up weights again
+    (views of the same storage), which is what the fused decode MLP kernel
+    takes."""
+    out = []
+    for layer in layer_list:
+        layer = dict(layer)
+        gu = layer.pop("gateup_proj", None)
+        if gu is None:
+            out.append(layer)
+            continue
+        if isinstance(gu, Int8Weight):
+            m = gu.q.shape[0] // 2
+            layer["gate_proj"] = Int8Weight(q=gu.q[:m], scale=gu.scale[:m])
+            layer["up_proj"] = Int8Weight(q=gu.q[m:], scale=gu.scale[m:])
+        else:
+            m = gu.shape[0] // 2
+            layer["gate_proj"], layer["up_proj"] = gu[:m], gu[m:]
+        out.append(layer)
+    return out
+
+
 def forward_step_layers(layer_list: list[Params], final_norm: torch.Tensor,
                         cfg: TextDecoderConfig, embd: torch.Tensor, cache: dict,
-                        pos: int, *, attn_window: int | None = None):
+                        pos: int, *, attn_window: int | None = None,
+                        fused_mlp: bool = False):
     """One decode step for the token at `pos` (embd [D]): each layer writes
     its K/V at `pos` BEFORE attending to the first `attn_window` slots
     (slot <= pos). A bf16 or f32 cache attends through `ops.attn.
     gqa_decode_attention` on the full cache: on the card it launches kernel 4
     or raises (the window must be whole 256-slot tiles); on the CPU it runs
     its plain version. An int8 cache keeps the plain attention on a
-    dequantized window. Returns (hidden [D], cache)."""
+    dequantized window. `fused_mlp`: every layer's MLP through the fused int8
+    kernel (see `_mlp`). Returns (hidden [D], cache)."""
     s_max = cache["k"][0].shape[0]
     win = s_max if attn_window is None else min(attn_window, s_max)
     dev = embd.device
@@ -299,7 +349,7 @@ def forward_step_layers(layer_list: list[Params], final_norm: torch.Tensor,
         else:
             attn = attn_ops.gqa_decode_attention(q, cache["k"][l], cache["v"][l], pos, scale, win)
         h = h + matmul(attn.reshape(1, -1), layer["o_proj"])
-        h = h + _mlp(layer, h, pre_norm=(layer["mlp_norm"], eps))
+        h = h + _mlp(layer, h, pre_norm=(layer["mlp_norm"], eps), fused_kernel=fused_mlp)
     return rms_norm(h, final_norm, eps)[0], cache
 
 

@@ -8,7 +8,8 @@ repacks q4_k tensors into the matvec layout (`ops.q4k.Q4KWeight`); nothing is
 cached beside the checkpoint (the JAX package's `.int4/` sidecars hold its
 own layout and are neither read nor written here). The int8 path
 requantizes q4_k content to per-channel int8 (`ops.qtensor.Int8Weight`) on
-the host, as the JAX package does.
+the host, as the JAX package does; the q4_k path keeps each q4_k tensor as
+planar `ops.qtensor.Q4Weight` (the GGUF's own scales, no repack).
 """
 
 from __future__ import annotations
@@ -123,10 +124,13 @@ def load_decoder_gguf(
 ) -> tuple[TextDecoderConfig, dict, BPETokenizer]:
     """precision "int4": q4_k weights in the matvec layout, bf16 embed;
     "int8": q4_k weights requantized to per-channel int8, the head per-row
-    int8 from its f32 values, bf16 embed; "bf16" / "f32": dense weights of
-    that dtype. Norms stay f32."""
-    if precision not in ("int4", "int8", "bf16", "f32"):
-        raise NotImplementedError(f"decoder precision {precision!r} is not ported yet")
+    int8 from its f32 values, bf16 embed; "q4_k": q4_k tensors as planar
+    `Q4Weight` (any other tensor dense bf16), the head requantized to
+    `Q4Weight` with its rows zero-padded to a multiple of 256 (`lm_logits`
+    slices them away), bf16 embed; "bf16" / "f32": dense weights of that
+    dtype. Norms stay f32."""
+    if precision not in ("int4", "int8", "q4_k", "bf16", "f32"):
+        raise ValueError(f"unknown decoder precision {precision!r}")
     reader = GGUFReader(path)
     cfg = decoder_config_from_gguf(reader)
     tokenizer = BPETokenizer.from_gguf_kv(reader.kv)
@@ -151,6 +155,25 @@ def load_decoder_gguf(
 
         def head():
             return _int8_weight(_int8_rows(reader.tensor(head_name, dtype=np.float32)), device)
+
+    elif precision == "q4_k":
+        def weight(name):
+            ti = reader.tensors[name]
+            if ti.ggml_type == q.GGML_Q4_K and len(ti.shape) == 2:
+                return Q4Weight.from_packed(reader.packed_q4(name), device=device)
+            return _t(reader.tensor(name, dtype=np.float32), device, dense_dtype)
+
+        def head():
+            if cfg.hidden_size % 64:
+                return _t(reader.tensor(head_name, dtype=np.float32), device, dense_dtype)
+            # the head is the largest stream of a decode step: requantized to
+            # the packed layout; padded rows are all zero and give logits of 0
+            head_f32 = reader.tensor(head_name, dtype=np.float32)
+            pad = (-head_f32.shape[0]) % 256
+            if pad:
+                head_f32 = np.concatenate(
+                    [head_f32, np.zeros((pad, head_f32.shape[1]), np.float32)])
+            return Q4Weight.from_packed(q.pack_q4_direct(head_f32), device=device)
 
     else:
         def weight(name):

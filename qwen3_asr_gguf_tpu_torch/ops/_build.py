@@ -78,6 +78,20 @@ _SIGNATURES = {
         _F,  # scale
         _P,  # stream
     ],
+    "q4_matmul_launch": [
+        _P, _I,  # x, x_is_bf16 (out takes x's dtype)
+        _P, _P, _P,  # packed, scale, minv
+        _P,  # out
+        _I, _I, _I,  # t, n, k
+        _P,  # stream
+    ],
+    "fused_mlp_launch": [
+        _P, _I,  # x, x_is_bf16 (out takes x's dtype)
+        _P, _P, _P, _P, _P, _P,  # wg, sg, wu, su, wd, sd
+        _P, _P,  # act (f32 scratch of m values), out
+        _I, _I, _I,  # m, d, tile_m
+        _P,  # stream
+    ],
 }
 
 _lock = threading.Lock()

@@ -4,11 +4,13 @@
 Convention: weights are [out_features, in_features] (GGUF row order) and
 ``matmul(x, w) == x @ dequant(w).T``. A `Q4KWeight` takes one row through the
 q4_k matvec kernel where `supported`, and 8 to 64 rows (a multiple of 8)
-through the multi-row kernel where `supported_rows`; an `Int8Weight` takes the
-int8 x int8 product with per-row activation quantization (`int8_matmul`,
-plain PyTorch as in the JAX package, which computes it outside any Pallas
-kernel); everything else is a dequant followed by a dense matmul that
-accumulates in f32.
+through the multi-row kernel where `supported_rows`; a `Q4Weight` takes at
+most 64 rows through the fused dequant + matmul kernel (`ops.qmm.q4_matmul`)
+when x is on the card, as the JAX package does on the TPU, and dequant + dense
+otherwise; an `Int8Weight` takes the int8 x int8 product with per-row
+activation quantization (`int8_matmul`, plain PyTorch as in the JAX package,
+which computes it outside any Pallas kernel); everything else is a dequant
+followed by a dense matmul that accumulates in f32.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from ..formats.quants import PackedQ4
 
-from . import q4k
+from . import q4k, qmm
 
 
 @dataclass
@@ -91,16 +93,39 @@ def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8), sx
 
 
+INT_MM_MIN_ROWS = 32  # torch._int_mm wants more than 16 rows; pad to whole 8-row tiles
+
+
+def int8_dot(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """int8 [..., K] x int8 [N, K] -> the exact integer sums, as f32
+    [..., N] (rounded as the reference's int32 -> f32 cast rounds).
+
+    On the CPU the products are summed in f64: every partial sum is an
+    integer below 127 * 127 * K < 2**53, so the sum is exact at any K (f32
+    holds integers only up to 2**24, which K = 2048 can pass). On the card
+    that route converts the whole weight to f64 at every call (17 bytes moved
+    per weight element), so there the product is one `torch._int_mm` (int8 x
+    int8 -> int32 on the tensor cores, exact below 2**31, i.e. K < 133,000):
+    it needs more than 16 rows and K and N multiples of 8, so the rows are
+    zero-padded to at least 32 and other shapes keep the f64 route. Held bit
+    for bit to the f64 route on an H100 up to the 1.7B LM head (N = 151,936;
+    `tests/test_torch_cuda.py`)."""
+    n, k = wq.shape
+    if xq.is_cuda and k % 8 == 0 and n % 8 == 0 and 127 * 127 * k < 2 ** 31:
+        rows = xq.reshape(-1, k)
+        t = rows.shape[0]
+        padded = max(INT_MM_MIN_ROWS, (t + 7) // 8 * 8)
+        if padded != t:
+            rows = torch.cat([rows, rows.new_zeros(padded - t, k)])
+        y = torch._int_mm(rows.contiguous(), wq.contiguous().T)[:t]
+        return y.float().reshape(*xq.shape[:-1], n)
+    return torch.matmul(xq.double(), wq.double().T).float()
+
+
 def int8_matmul(x: torch.Tensor, w: Int8Weight) -> torch.Tensor:
     """x [..., K] @ dequant(w).T with dynamic per-row activation quantization."""
     xq, sx = quantize_rows_int8(x)
-    # the int8 x int8 products are summed in f64: every partial sum is an
-    # integer below 127 * 127 * K < 2**53, so the sum is exact at any K
-    # (f32 holds integers only up to 2**24, which K = 2048 can pass), and it
-    # rounds to f32 as the reference's int32 sum does. int32 matmul itself
-    # has no CUDA kernel in PyTorch.
-    y = torch.matmul(xq.double(), w.q.double().T).float()
-    return (y * sx * w.scale).to(x.dtype)
+    return (int8_dot(xq, w.q) * sx * w.scale).to(x.dtype)
 
 
 def to_int8(w) -> Int8Weight:
@@ -120,6 +145,15 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float().T).to(x.dtype)
 
 
+def _q4_kernel_route(x: torch.Tensor) -> bool:
+    """Whether a `Q4Weight` product of at most `qmm.MAX_ROWS` rows goes to
+    the fused kernel: on the card it does, as on the TPU in the JAX package;
+    on the CPU both packages take dequant + dense (the committed goldens come
+    from that side). Tests replace this to put the kernel's plain version
+    into the dispatch."""
+    return x.is_cuda
+
+
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
     """x [..., K] @ w.T -> [..., N]; w is Q4KWeight, Int8Weight, Q4Weight or
     dense [N, K]."""
@@ -132,7 +166,11 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, Int8Weight):
         return int8_matmul(x, w)
     if isinstance(w, Q4Weight):
-        return dense_matmul(x, dequant_q4(w, dtype=x.dtype))
+        shape = tuple(x.shape)
+        if (_q4_kernel_route(x) and qmm.supported(shape, w)
+                and x.numel() // shape[-1] <= qmm.MAX_ROWS):
+            return qmm.q4_matmul(x, w)  # decode matvecs, short encoder inputs
+        return dense_matmul(x, dequant_q4(w, dtype=x.dtype))  # compute-bound: dequant once
     return dense_matmul(x, w)
 
 

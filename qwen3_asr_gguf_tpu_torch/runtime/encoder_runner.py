@@ -45,14 +45,16 @@ class EncoderRunner:
             hidden = hidden.to(self.compute_dtype)
         return enc.backend_transformer(self.params, self.cfg, hidden, valid_tokens=valid_tokens)
 
-    def encode(self, audio) -> torch.Tensor:
+    def encode(self, audio, *, bucketed: bool = False) -> torch.Tensor:
         """audio [n] -> [t_padded, output_dim]; the first
-        `valid_tokens(n)` rows are meaningful."""
+        `valid_tokens(n)` rows are meaningful. `bucketed=True` takes the
+        bucket-padded branch for aligned audio too (a streaming session's
+        growing audio then meets a few bucket shapes, not one per length)."""
         n = int(audio.shape[-1])
         frames = n // HOP
         if frames == 0:
             raise ValueError("audio shorter than one mel hop (10 ms)")
-        if n % SAMPLE_RATE == 0 and frames % self.cfg.n_window == 0:
+        if not bucketed and n % SAMPLE_RATE == 0 and frames % self.cfg.n_window == 0:
             audio = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
             hidden = enc.conv_frontend(self.params, self.cfg, self.frontend(audio))
             return self._backend(hidden)

@@ -14,13 +14,16 @@ Same semantics as the JAX engine's synchronous path:
 - rollback of the last `rollback_num` tokens of every non-final chunk, the
   repetition circuit breaker and its temperature-escalation retries.
 
-Precisions: "int4" (the q4_k decoder and int4 encoder) and "f32"; KV caches
-bf16, f32 or int8 (`kv_cache_dtype`; an f32 engine keeps f32 KV, as in the
-JAX package). With `enable_aligner`, chunk i is force-aligned as soon as its
+Precisions: "int4" (the q4_k decoder repacked for the int4 matvec kernels,
+int4 encoder), "int8" (per-channel int8 decoder and encoder; on the card the
+decode step's MLP runs through the fused int8 kernel unless `fused_mlp=False`),
+"q4_k" (planar `Q4Weight` decoder through the fused dequant + matmul kernel,
+int4 encoder) and "f32"; KV caches bf16, f32 or int8 (`kv_cache_dtype`; an f32
+engine keeps f32 KV, as in the JAX package). With `enable_aligner`, chunk i is force-aligned as soon as its
 text is final, in the same windows and with the same offsets as the JAX
 engine's align worker (which aligns chunk i-1 while chunk i decodes; here the
 steps run one after the other and give the same items). Not ported yet (see
-ROADMAP.md): the mesh, the int8 and half-precision weights.
+ROADMAP.md): the mesh and the half-precision weights.
 `pipelined_dispatch` runs this synchronous path, which gives the same tokens.
 """
 
@@ -67,10 +70,13 @@ class _Segment:
 
 
 class QwenASREngine:
-    def __init__(self, config: ASREngineConfig, device="cuda"):
+    def __init__(self, config: ASREngineConfig, device="cuda", *,
+                 fused_mlp: bool | None = None):
+        """`fused_mlp` goes to the Generator: None turns the fused int8 MLP
+        kernel on for an "int8" engine on the card and off on the CPU."""
         if config.mesh_shape:
             raise NotImplementedError("mesh inference is not ported yet")
-        if config.precision not in ("int4", "f32"):
+        if config.precision not in ("int4", "int8", "q4_k", "f32"):
             raise NotImplementedError(f"precision {config.precision!r} is not ported yet")
         kv_name = "f32" if config.precision == "f32" else config.kv_cache_dtype
         if kv_name not in _KV_DTYPES:
@@ -84,8 +90,10 @@ class QwenASREngine:
         self.thinker = thinker
 
         enc_path = os.path.join(model_dir, config.encoder_fn)
-        if config.precision == "int4":
-            enc_cfg, enc_params = P.load_encoder_quantized(enc_path, kind="int4", device=self.device)
+        if config.precision in ("int4", "q4_k", "int8"):
+            enc_cfg, enc_params = P.load_encoder_quantized(
+                enc_path, kind="int8" if config.precision == "int8" else "int4",
+                device=self.device)
         else:
             enc_cfg, enc_params = P.load_encoder_safetensors(enc_path, device=self.device)
         mel_path = os.path.join(model_dir, "mel_filters.npy")
@@ -105,7 +113,10 @@ class QwenASREngine:
             eos_ids=thinker.eos_token_ids,
             block=config.decode_block,
             cache_dtype=_KV_DTYPES[kv_name],
+            # only int4 prefills on a dense copy made once; the other
+            # precisions go through `matmul` per call, as in the JAX package
             dequant_prefill=config.precision == "int4",
+            fused_mlp=fused_mlp,
             device=self.device,
         )
         self.ID_IM_START = thinker.im_start_token_id

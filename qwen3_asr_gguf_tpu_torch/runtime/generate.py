@@ -59,8 +59,13 @@ class Generator:
         cache_dtype=torch.bfloat16,
         block: int = 64,
         dequant_prefill: bool = False,  # prefill on a dense bf16 copy of int4 weights
+        fused_mlp: bool | None = None,
         device="cpu",
     ):
+        """`fused_mlp`: the decode step's MLP through the fused int8 kernel
+        (`ops.mlp.fused_mlp_matvec`) where the weights allow it
+        (`_mlp_fusable`). None turns it on when the weights are on the card
+        and off on the CPU, whose unfused side the goldens come from."""
         self.params = params
         self.cfg = cfg
         self.n_ctx = n_ctx
@@ -70,6 +75,10 @@ class Generator:
         self.device = torch.device(device)
         self._dequant_prefill = dequant_prefill
         self._prefill_params = None
+        if fused_mlp is None:
+            fused_mlp = self.device.type == "cuda"
+        self.fused_mlp = bool(fused_mlp) and self._mlp_fusable()
+        self._layers_list = None
 
     @property
     def prefill_params(self) -> dict:
@@ -82,6 +91,25 @@ class Generator:
             else:
                 self._prefill_params = self.params
         return self._prefill_params
+
+    @property
+    def layers_list(self) -> list:
+        """The decode step's per-layer weights, derived on first use: with the
+        fused MLP each `gateup_proj` is split into gate and up once."""
+        if self._layers_list is None:
+            layers = self.params["layers"]
+            self._layers_list = dec.split_mlp_weights(layers) if self.fused_mlp else layers
+        return self._layers_list
+
+    def _mlp_fusable(self) -> bool:
+        from ..ops.qtensor import Int8Weight
+
+        layer = self.params["layers"][0]
+        gu = layer.get("gateup_proj")
+        if not isinstance(gu, Int8Weight):
+            return False
+        m, d = gu.q.shape[-2] // 2, gu.q.shape[-1]
+        return m % 512 == 0 and d % 128 == 0 and isinstance(layer.get("down_proj"), Int8Weight)
 
     def new_cache(self) -> dict:
         # whole 256-slot tiles at any n_ctx: the decode window (a 256-slot
@@ -180,13 +208,13 @@ class Generator:
             return [], state, True, False  # context full
         # attend to the live prefix only, in 256-slot window buckets
         win = round_up(state.pos + self.block, 256)
-        layers, final_norm = self.params["layers"], self.params["final_norm"]
+        layers, final_norm = self.layers_list, self.params["final_norm"]
         emitted: list[int] = []
         tok, pos, done, aborted = state.last_token, state.pos, state.done, False
         while len(emitted) < self.block and not done:
             hidden, _ = dec.forward_step_layers(
                 layers, final_norm, self.cfg, self.params["embed"][tok], state.cache, pos,
-                attn_window=win,
+                attn_window=win, fused_mlp=self.fused_mlp,
             )
             logits = dec.lm_logits(self.params, hidden, self.cfg.lm_head_dim)
             nxt = int(sample(logits, state.generator, temperature))

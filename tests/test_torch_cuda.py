@@ -14,6 +14,13 @@ per-row math, f32 sums in another order): 1e-4 * max|matvec| on f32 outputs.
 The decode attention: 1e-2 * max|plain| over a bf16 cache (bf16 rounding of
 the probabilities and the output), 1e-4 * max|plain| over an f32 cache (the
 online softmax's f32 sums in another order).
+The fused int4 dequant + matmul (`q4_matmul`): f32 weights and f32 sums in
+another order: 1e-4 * max|plain| on f32 outputs, 1e-2 on bf16 ones.
+The fused int8 MLP: its integer dots are exact, so it differs from the plain
+version by the ulp of expf in the logistic, which can move an act value
+across a .5 boundary of the per-tile requantization: a flipped int8 changes
+an output by about 1e-3 of max|plain|, so the bound is 1e-2 * max|plain| and
+the number of flipped values is bounded beside it (at most 4 of M).
 """
 
 import numpy as np
@@ -22,7 +29,8 @@ import torch
 
 from qwen3_asr_gguf_tpu_torch.formats import quants as q
 from qwen3_asr_gguf_tpu_torch.models import decoder as dec
-from qwen3_asr_gguf_tpu_torch.ops import attn, q4k
+from qwen3_asr_gguf_tpu_torch.ops import attn, mlp, q4k, qmm
+from qwen3_asr_gguf_tpu_torch.ops import qtensor as tq
 
 
 @pytest.fixture
@@ -270,3 +278,215 @@ def test_decode_step_launches_the_attention_kernel_or_raises(cuda):
     with pytest.raises(ValueError):
         dec.forward_step_layers(params["layers"], params["final_norm"], cfg, embd, cache, 8,
                                 attn_window=300)
+
+
+def _q4_weight(n, k, seed, device):
+    rng = np.random.default_rng(seed)
+    p = q.pack_q4_direct((rng.standard_normal((n, k)) * 0.05).astype(np.float32))
+    return tq.Q4Weight.from_packed(p, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n,k", [
+    (1, 4096, 2048), (1, 2048, 2048), (1, 12288, 2048), (1, 2048, 6144), (1, 152064, 2048),
+    (26, 4096, 1024), (52, 1024, 4096), (26, 1024, 1024), (13, 1024, 7680), (52, 896, 896 * 4),
+    (8, 2048, 2048), (64, 2048, 6144), (3, 40, 64), (5, 24, 320), (64, 8, 128)])
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_q4_matmul_vs_plain(cuda, t, n, k, dtype, bound):
+    """Decode shapes of the 1.7B decoder (T = 1, the padded LM head too), the
+    encoder's products at 13 to 52 rows (conv_out's K = 7680 and the 0.6B
+    encoder's N = 896 included), the serving batch, and small odd shapes
+    (K = 64, 320: no float4 scale loads; N below one block)."""
+    w = _q4_weight(n, k, n + k + t, cuda)
+    x = torch.randn(t, k, generator=torch.Generator().manual_seed(t)).to(cuda, dtype)
+    before = qmm.q4_matmul.launches
+    got = qmm.q4_matmul(x, w)
+    assert qmm.q4_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (t, n)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, qmm.q4_matmul_ref(x, w)) <= bound
+    if t == 1:  # a bare [K] row, as lm_logits passes it
+        assert torch.equal(qmm.q4_matmul(x[0], w), got[0])
+
+
+@pytest.mark.cuda
+def test_q4_matmul_dispatch_on_the_card(cuda):
+    """`matmul` sends at most 64 rows to the kernel and more rows, or a
+    shape the kernel does not take, to dequant + dense."""
+    w = _q4_weight(512, 1024, 3, cuda)
+    for t, launches in ((1, 1), (64, 1), (65, 0)):
+        x = torch.randn(t, 1024, device=cuda)
+        before = qmm.q4_matmul.launches
+        got = tq.matmul(x, w)
+        assert qmm.q4_matmul.launches == before + launches
+        assert _rel_err(got, x @ tq.dequant_q4(w, dtype=torch.float32).T) <= 1e-4
+    odd = _q4_weight(64, 96, 4, cuda)
+    before = qmm.q4_matmul.launches
+    tq.matmul(torch.randn(3, 96, device=cuda), odd)
+    assert qmm.q4_matmul.launches == before
+
+
+@pytest.mark.cuda
+def test_q4_matmul_raises_instead_of_falling_back(cuda):
+    w = _q4_weight(512, 1024, 5, cuda)
+    before = qmm.q4_matmul.launches
+    with pytest.raises(ValueError):  # 65 rows
+        qmm.q4_matmul(torch.randn(65, 1024, device=cuda), w)
+    with pytest.raises(ValueError):  # not contiguous
+        qmm.q4_matmul(torch.randn(4, 2048, device=cuda)[:, ::2], w)
+    with pytest.raises(TypeError):
+        qmm.q4_matmul(torch.randn(4, 1024, device=cuda, dtype=torch.float16), w)
+    with pytest.raises(ValueError):  # weight on the CPU
+        qmm.q4_matmul(torch.randn(4, 1024, device=cuda), _q4_weight(512, 1024, 5, "cpu"))
+    with pytest.raises(ValueError):  # K = 96: no whole groups per half
+        qmm.q4_matmul(torch.randn(4, 96, device=cuda), _q4_weight(64, 96, 5, cuda))
+    assert qmm.q4_matmul.launches == before
+
+
+def _mlp_args(m, d, seed, device):
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in ((m, d), (m, d), (d, m)):
+        iw = tq.to_int8(torch.from_numpy((rng.standard_normal(shape) * 0.05).astype(np.float32)))
+        out += [iw.q.to(device), iw.scale.to(device)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m,tile", [(2048, 6144, 512), (1024, 3072, 512), (512, 1024, 512),
+                                      (256, 512, 256), (128, 1024, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_mlp_vs_plain(cuda, d, m, tile, dtype):
+    args = _mlp_args(m, d, d + m, cuda)
+    x = torch.randn(1, d, generator=torch.Generator().manual_seed(d)).to(cuda, dtype)
+    before = mlp.fused_mlp_matvec.launches
+    got = mlp.fused_mlp_matvec(x, *args, tile_m=tile)
+    assert mlp.fused_mlp_matvec.launches == before + 1
+    assert got.dtype == dtype and got.shape == (1, d)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, mlp.fused_mlp_matvec_ref(x, *args, tile_m=tile)) <= 1e-2
+    # the kernel's act values, requantized as the plain version does
+    _, act = mlp._launch(x, *args, tile)
+    kq, _ = mlp.quantize_act_tiles(act[None, :], tile)
+    pq, _ = mlp.quantize_act_tiles(mlp.mlp_act_ref(x, *args[:4]), tile)
+    torch.cuda.synchronize()
+    assert int((kq != pq).sum()) <= 4
+    assert int((kq.int() - pq.int()).abs().max()) <= 1
+
+
+@pytest.mark.cuda
+def test_fused_mlp_raises_instead_of_falling_back(cuda):
+    args = _mlp_args(1024, 512, 1, cuda)
+    x = torch.randn(1, 512, device=cuda)
+    before = mlp.fused_mlp_matvec.launches
+    with pytest.raises(ValueError):  # two rows
+        mlp.fused_mlp_matvec(torch.randn(2, 512, device=cuda), *args)
+    with pytest.raises(ValueError):  # M is no multiple of the tile
+        mlp.fused_mlp_matvec(x, *args, tile_m=768)
+    with pytest.raises(TypeError):
+        mlp.fused_mlp_matvec(x.half(), *args)
+    with pytest.raises(ValueError):  # a weight on the CPU
+        mlp.fused_mlp_matvec(x, args[0].cpu(), *args[1:])
+    with pytest.raises(ValueError):  # a strided weight
+        mlp.fused_mlp_matvec(x, args[0].T.contiguous().T, *args[1:])
+    assert mlp.fused_mlp_matvec.launches == before
+
+
+@pytest.mark.cuda
+def test_int8_step_launches_the_fused_mlp_or_raises(cuda):
+    """On the card an int8 decode step with `fused_mlp` runs kernel 7 once
+    per layer, and raises on layers it cannot take (a fused gate|up weight)
+    instead of running the unfused MLP."""
+    from qwen3_asr_gguf_tpu_torch.export.synthetic import np_init_like
+    from qwen3_asr_gguf_tpu_torch.models import params as P
+    from qwen3_asr_gguf_tpu_torch.models.configs import TextDecoderConfig
+    from qwen3_asr_gguf_tpu_torch.runtime.generate import Generator
+
+    cfg = TextDecoderConfig(vocab_size=512, hidden_size=512, num_layers=2, num_heads=4,
+                            num_kv_heads=2, head_dim=128, intermediate_size=1024)
+    params = P.from_jax_params(np_init_like(dec.init_shapes(cfg), 0), device=cuda)
+    params["layers"] = [{k: (tq.to_int8(v) if v.ndim == 2 else v) for k, v in layer.items()}
+                        for layer in params["layers"]]
+    params = P.fuse_layer_weights(params)
+    gen = Generator(params, cfg, n_ctx=256, cache_dtype=torch.bfloat16, device=cuda)
+    assert gen.fused_mlp  # None: on for CUDA weights
+    cache = gen.new_cache()
+    embd = torch.randn(cfg.hidden_size, generator=torch.Generator().manual_seed(9)).to(
+        cuda, torch.bfloat16)
+    before = mlp.fused_mlp_matvec.launches
+    h, _ = dec.forward_step_layers(gen.layers_list, params["final_norm"], cfg, embd, cache, 7,
+                                   attn_window=256, fused_mlp=True)
+    assert mlp.fused_mlp_matvec.launches == before + cfg.num_layers
+    twin = gen.new_cache()
+    h_plain, _ = dec.forward_step_layers(params["layers"], params["final_norm"], cfg, embd,
+                                         twin, 7, attn_window=256)
+    assert mlp.fused_mlp_matvec.launches == before + cfg.num_layers
+    assert _rel_err(h, h_plain) <= 5e-2  # per-tile against per-row requantization, bf16
+    with pytest.raises(ValueError):
+        dec.forward_step_layers(params["layers"], params["final_norm"], cfg, embd, cache, 8,
+                                attn_window=256, fused_mlp=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("container", ["q4_k", "int8"])
+def test_rows_step_of_the_other_precisions(cuda, container):
+    """The batcher's rows step (B = 8) on the `q4_k` and `int8` decoders: a
+    `Q4Weight` product of 8 rows launches q4_matmul (qkv, o, gate_up and down
+    of each layer), an `Int8Weight` one is `int8_matmul` (no fused MLP on
+    rows); both agree with the same step on the dequantized weights."""
+    from qwen3_asr_gguf_tpu_torch.export.synthetic import np_init_like
+    from qwen3_asr_gguf_tpu_torch.models import params as P
+    from qwen3_asr_gguf_tpu_torch.models.configs import TextDecoderConfig
+
+    cfg = TextDecoderConfig(vocab_size=512, hidden_size=512, num_layers=2, num_heads=4,
+                            num_kv_heads=2, head_dim=128, intermediate_size=1024)
+    params = P.from_jax_params(np_init_like(dec.init_shapes(cfg), 0), device=cuda)
+
+    def quantized(v):
+        if container == "int8":
+            return tq.to_int8(v)
+        return tq.Q4Weight.from_packed(q.pack_q4_direct(v.float().cpu().numpy()), device=cuda)
+
+    def dense(v):
+        if isinstance(v, tq.Int8Weight):
+            return tq.dequant_int8(v, dtype=torch.float32)
+        return tq.dequant_q4(v, dtype=torch.float32) if isinstance(v, tq.Q4Weight) else v
+
+    layers = [{k: (quantized(v) if v.ndim == 2 else v) for k, v in layer.items()}
+              for layer in params["layers"]]
+    twin_layers = [{k: dense(v) for k, v in layer.items()} for layer in layers]
+    fused = P.fuse_layer_weights({**params, "layers": layers})["layers"]
+    twin_fused = P.fuse_layer_weights({**params, "layers": twin_layers})["layers"]
+    b = 8
+    embd = torch.randn(b, cfg.hidden_size, generator=torch.Generator().manual_seed(9)).to(cuda)
+    poss = torch.arange(b, device=cuda) * 40
+    before = (qmm.q4_matmul.launches, mlp.fused_mlp_matvec.launches)
+    h, _ = dec.forward_step_rows(fused, params["final_norm"], cfg, embd,
+                                 dec.init_cache(cfg, 512, torch.float32, device=cuda, rows=b),
+                                 poss, attn_window=512)
+    assert qmm.q4_matmul.launches == before[0] + (4 * cfg.num_layers if container == "q4_k" else 0)
+    assert mlp.fused_mlp_matvec.launches == before[1]
+    want, _ = dec.forward_step_rows(twin_fused, params["final_norm"], cfg, embd,
+                                    dec.init_cache(cfg, 512, torch.float32, device=cuda, rows=b),
+                                    poss, attn_window=512)
+    assert h.shape == (b, cfg.hidden_size) and bool(torch.isfinite(h).all())
+    # q4_k: f32 sums in another order; int8: the activations' int8 rounding
+    assert _rel_err(h, want) <= (1e-4 if container == "q4_k" else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n,k", [(1, 4096, 2048), (1, 151936, 2048), (1, 2048, 6144),
+                                   (520, 1024, 4096), (5, 48, 1024), (1, 50, 1024)])
+def test_int8_dot_on_the_card_equals_the_f64_route(cuda, t, n, k):
+    """`torch._int_mm` on zero-padded rows gives the exact integer sums, bit
+    for bit the f64 route's (N = 50 is no multiple of 8 and keeps f64)."""
+    g = torch.Generator().manual_seed(n + t)
+    xq = torch.randint(-127, 128, (t, k), generator=g, dtype=torch.int8).to(cuda)
+    wq = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(cuda)
+    wq[0], xq[0] = 127, 127  # the largest sum K can give
+    got = tq.int8_dot(xq, wq)
+    want = torch.matmul(xq.double(), wq.double().T).float()
+    torch.cuda.synchronize()
+    assert got.shape == (t, n) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(tq.int8_dot(xq[0], wq), want[0])

@@ -165,8 +165,8 @@ def test_not_ported_options_raise(kernel_dir):
     with pytest.raises(NotImplementedError):
         QwenASREngine(_config(kernel_dir, "qwen3_asr_llm.q4_k.gguf", "int4",
                               mesh_shape={"model": 2}), device="cpu")
-    with pytest.raises(NotImplementedError):
-        QwenASREngine(_config(kernel_dir, "qwen3_asr_llm.q4_k.gguf", "int8"), device="cpu")
+    with pytest.raises(NotImplementedError):  # the half-precision weights
+        QwenASREngine(_config(kernel_dir, "qwen3_asr_llm.q4_k.gguf", "bf16"), device="cpu")
 
 
 def test_q6k_embed_dequantizes_on_device_without_native(kernel_dir, monkeypatch):

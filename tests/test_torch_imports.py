@@ -46,7 +46,8 @@ PORT_SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 COPIED = ["schema.py", "models/configs.py", "formats/__init__.py", "formats/gguf.py",
           "formats/quants.py", "text/__init__.py", "text/tokenizer.py", "text/parsing.py",
           "text/align_text.py", "text/itn.py", "text/exporters.py", "utils/__init__.py",
-          "utils/languages.py", "audio/io.py", "native.py"]
+          "utils/languages.py", "audio/io.py", "native.py", "audio/split.py",
+          "runtime/streaming.py", "runtime/model_api.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -91,6 +92,8 @@ print("imported", len({modules!r}))
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == f"imported {len(modules)}"
     assert len(modules) > 30
+    for new in ("ops.qmm", "ops.mlp", "audio.split", "runtime.streaming", "runtime.model_api"):
+        assert f"qwen3_asr_gguf_tpu_torch.{new}" in modules
 
 
 @pytest.mark.parametrize("rel", COPIED)

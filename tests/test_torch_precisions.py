@@ -1,0 +1,315 @@
+"""Port parity for the `int8` and `q4_k` decoder precisions: loaders leaf by
+leaf, the decode step with and without the fused int8 MLP, and whole engines
+against the JAX engines and the committed golden, on the CPU.
+
+The JAX package takes its non-TPU branches on the CPU (no fused MLP, dequant +
+dense for a `Q4Weight`), and so does the port for CPU tensors. The card's
+branches are built explicitly here: the JAX Generator is rebuilt with
+`fused_mlp` on (its kernel then runs in Pallas interpret mode), and the port's
+dispatch is given the q4_matmul wrapper's plain version.
+"""
+
+import dataclasses
+import json
+import os
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import qwen3_asr_gguf_tpu.models.configs as C
+import qwen3_asr_gguf_tpu_torch.models.configs as TC
+from qwen3_asr_gguf_tpu.models import decoder as jdec
+from qwen3_asr_gguf_tpu.models import params as jP
+from qwen3_asr_gguf_tpu.runtime.engine import QwenASREngine as JaxEngine
+from qwen3_asr_gguf_tpu_torch import QwenASREngine
+from qwen3_asr_gguf_tpu_torch.export.synthetic import make_synthetic_checkpoint
+from qwen3_asr_gguf_tpu_torch.models import decoder as tdec
+from qwen3_asr_gguf_tpu_torch.models import params as tP
+from qwen3_asr_gguf_tpu_torch.ops import mlp, qmm
+from qwen3_asr_gguf_tpu_torch.ops import qtensor as tq
+
+from test_torch_aligner import _assert_same_tree, _np
+from test_torch_engine import KERNEL_PRESET, TINY_256, _audio, _config, _record_chunks
+
+GOLDEN_DIR = Path(__file__).parent / "golden"
+LLM = "qwen3_asr_llm.q4_k.gguf"
+
+
+@pytest.fixture(scope="module")
+def kernel_dir(tmp_path_factory):
+    for presets in (C.PRESETS, TC.PRESETS):  # each package keeps its own table
+        presets.setdefault("kernel-512", KERNEL_PRESET)
+    d = tmp_path_factory.mktemp("precisions_ckpt")
+    make_synthetic_checkpoint(str(d), "kernel-512", quant="q4_k", seed=0)
+    return str(d)
+
+
+@pytest.fixture(scope="module")
+def engine_dir(tmp_path_factory):
+    """The checkpoint of the whole-engine comparisons. Random weights give
+    flat bf16 logits, and the jitted JAX engine rounds some intermediates
+    differently from the same engine run op by op (`jax.disable_jit()`),
+    which the port equals: on the seed-0 checkpoint the jitted int8 engine
+    leaves the port at chunk 0, token 4 (ROADMAP.md Queue 3 records it with
+    its margin). Seed 1 with a 550 Hz tone has no such near-tie in any of
+    the three engines compared here."""
+    for presets in (C.PRESETS, TC.PRESETS):
+        presets.setdefault("kernel-512", KERNEL_PRESET)
+    d = tmp_path_factory.mktemp("precisions_engine_ckpt")
+    make_synthetic_checkpoint(str(d), "kernel-512", quant="q4_k", seed=1)
+    return str(d)
+
+
+AUDIO = _audio(5.5, 550.0)  # three 2 s chunks: fresh prefill, 1-chunk reuse, header-only reuse
+
+
+# --------------------------------------------------------------------------
+# loaders
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("precision,container", [("q4_k", tq.Q4Weight), ("int8", tq.Int8Weight)])
+def test_decoder_load_equals_jax_params_carried_across(kernel_dir, precision, container):
+    path = os.path.join(kernel_dir, LLM)
+    jcfg, jparams, _ = jP.load_decoder_gguf(path, precision=precision)
+    tcfg, tparams, _ = tP.load_decoder_gguf(path, precision=precision)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    for name in ("q_proj", "o_proj", "gate_proj", "down_proj"):
+        assert isinstance(tparams["layers"][1][name], container), name
+    assert isinstance(tparams["lm_head"], container)
+    assert tparams["embed"].dtype == torch.bfloat16
+    assert tparams["layers"][0]["attn_norm"].dtype == torch.float32
+    _assert_same_tree(tparams, tP.from_jax_params(_np(jparams)))
+    _assert_same_tree(tP.fuse_layer_weights(tparams),
+                      tP.from_jax_params(_np(jP.fuse_layer_weights(jparams))))
+
+
+def test_q4k_head_rows_are_padded_and_sliced_away(tmp_path):
+    """A head whose row count is no multiple of 256 is zero-padded for the
+    kernel; the padded rows dequantize to exactly 0 and `lm_logits` drops
+    them, or they would win an argmax over all-negative logits."""
+    odd = dataclasses.replace(KERNEL_PRESET,
+                              text=dataclasses.replace(KERNEL_PRESET.text, vocab_size=600))
+    for presets in (C.PRESETS, TC.PRESETS):
+        presets.setdefault("kernel-512-v600", odd)
+    make_synthetic_checkpoint(str(tmp_path), "kernel-512-v600", quant="q4_k", seed=0)
+    path = os.path.join(str(tmp_path), LLM)
+    cfg, params, _ = tP.load_decoder_gguf(path, precision="q4_k")
+    _, jparams, _ = jP.load_decoder_gguf(path, precision="q4_k")
+    head = params["lm_head"]
+    assert head.shape == (768, 512) and cfg.lm_head_dim == 600
+    _assert_same_tree(head, tP.from_jax_params({"lm_head": _np(jparams["lm_head"])})["lm_head"])
+    assert not tq.dequant_q4(head, dtype=torch.float32)[600:].any()
+    hidden = torch.from_numpy(np.random.default_rng(0).standard_normal(512).astype(np.float32))
+    logits = tdec.lm_logits(params, hidden.to(torch.bfloat16), cfg.lm_head_dim)
+    assert logits.shape == (600,) and logits.dtype == torch.float32
+
+
+def test_unknown_precision_raises(kernel_dir):
+    with pytest.raises(ValueError):
+        tP.load_decoder_gguf(os.path.join(kernel_dir, LLM), precision="int3")
+
+
+# --------------------------------------------------------------------------
+# the decode step
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_int8_step_vs_jax_with_the_same_mlp_route(kernel_dir, fused, monkeypatch):
+    """Three decode steps of the int8 decoder from an empty f32 cache on f32
+    embeddings, the MLP fused in both packages or in neither (the JAX kernel
+    in interpret mode). The integer products are exact in both, so the
+    logits differ by f32 rounding only: |logits - JAX| <= 1e-4 on logits of
+    magnitude ~1, and the same argmax."""
+    path = os.path.join(kernel_dir, LLM)
+    cfg, params, _ = tP.load_decoder_gguf(path, precision="int8")
+    _, jparams, _ = jP.load_decoder_gguf(path, precision="int8")
+    params, jparams = tP.fuse_layer_weights(params), jP.fuse_layer_weights(jparams)
+    tlayers = tdec.split_mlp_weights(params["layers"]) if fused else params["layers"]
+    jlayers = jdec.unstack_layers(jparams["layers"], cfg.num_layers)
+    if fused:
+        jlayers = jdec.split_mlp_weights(jlayers)
+    calls = []
+    inner = mlp.fused_mlp_matvec
+    monkeypatch.setattr(mlp, "fused_mlp_matvec",
+                        lambda *a, **k: calls.append(1) or inner(*a, **k))
+    tcache = tdec.init_cache(cfg, 128, torch.float32)
+    jcache = jdec.init_cache(cfg, 128, jnp.float32)
+    rng = np.random.default_rng(7)
+    for pos in range(3):
+        e = rng.standard_normal(cfg.hidden_size).astype(np.float32)
+        th, tcache = tdec.forward_step_layers(tlayers, params["final_norm"], cfg,
+                                              torch.from_numpy(e), tcache, pos,
+                                              attn_window=128, fused_mlp=fused)
+        jh, jcache = jdec.forward_step_layers(jlayers, jparams["final_norm"], cfg,
+                                              jnp.asarray(e), jcache, jnp.int32(pos),
+                                              attn_window=128, fused_mlp=fused)
+        got = tdec.lm_logits(params, th, cfg.lm_head_dim).numpy()
+        want = np.asarray(jdec.lm_logits(jparams, jh, cfg.lm_head_dim), np.float32)
+        assert got.shape == (cfg.vocab_size,) and np.abs(want).max() > 0.1
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+        assert got.argmax() == want.argmax()
+    assert len(calls) == (3 * cfg.num_layers if fused else 0)
+
+
+def test_fused_mlp_is_the_generators_choice(kernel_dir):
+    """None: off for CPU weights; True: on where `_mlp_fusable`, and the layer
+    list is split once; int4 and q4_k weights are never fusable."""
+    from qwen3_asr_gguf_tpu_torch.runtime.generate import Generator
+
+    path = os.path.join(kernel_dir, LLM)
+    cfg, params, _ = tP.load_decoder_gguf(path, precision="int8")
+    fused = tP.fuse_layer_weights(params)
+    assert not Generator(fused, cfg, n_ctx=256).fused_mlp
+    gen = Generator(fused, cfg, n_ctx=256, fused_mlp=True)
+    assert gen.fused_mlp and gen.layers_list is gen.layers_list
+    assert "gateup_proj" not in gen.layers_list[0] and "gateup_proj" in gen.params["layers"][0]
+    assert gen.layers_list[0]["gate_proj"].q.data_ptr() \
+        == gen.params["layers"][0]["gateup_proj"].q.data_ptr()  # views, no copy
+    off = Generator(fused, cfg, n_ctx=256, fused_mlp=False)
+    assert not off.fused_mlp and off.layers_list is off.params["layers"]
+    _, q4, _ = tP.load_decoder_gguf(path, precision="q4_k")
+    assert not Generator(tP.fuse_layer_weights(q4), cfg, n_ctx=256, fused_mlp=True).fused_mlp
+
+
+# --------------------------------------------------------------------------
+# engines
+# --------------------------------------------------------------------------
+
+
+def _run(engine, audio):
+    chunks = _record_chunks(engine)
+    np.random.seed(11)
+    res = engine.asr(audio, context="", language="English", chunk_size_sec=2.0,
+                     memory_chunks=1, temperature=0.0)
+    return chunks, res.text, res.performance["prefill_tokens"], res.performance["decode_tokens"]
+
+
+def _jax_engine(cfg, fused_mlp=False):
+    engine = JaxEngine(cfg)
+    if fused_mlp:
+        # the TPU side of the backend switch, built by hand: the block program
+        # reads the flag when it is built, the layer list when it is derived
+        gen = engine.generator
+        gen._derive_thread.join()
+        assert gen._mlp_fusable()
+        gen.fused_mlp = True
+        gen._layers_list = None
+        gen._block_jit = gen._build_block()
+    return engine
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_int8_engine_greedy_tokens_equal_jax(engine_dir, fused):
+    cfg = _config(engine_dir, LLM, "int8")
+    port = QwenASREngine(cfg, device="cpu", fused_mlp=fused)
+    assert port.generator.fused_mlp == fused
+    assert isinstance(port.encoder.params["proj1_w"], tq.Int8Weight)
+    want = _run(_jax_engine(cfg, fused), AUDIO)
+    got = _run(port, AUDIO)
+    assert len(want[0]) == 3
+    assert got == want
+
+
+def test_q4k_engine_greedy_tokens_equal_jax(engine_dir, monkeypatch):
+    """On the CPU both packages take dequant + dense for a `Q4Weight`. The
+    port is run again with the q4_matmul wrapper (its plain version here) in
+    the dispatch, as on the card: f32 weights and sums where the dense route
+    rounds the weight to bf16 first, so the step's logits may differ by bf16
+    steps; on this input the greedy tokens are the same."""
+    cfg = _config(engine_dir, LLM, "q4_k")
+    port = QwenASREngine(cfg, device="cpu")
+    head = port.generator.params["lm_head"]
+    assert isinstance(head, tq.Q4Weight) and head.shape == (512, 512)
+    assert isinstance(port.generator.params["layers"][0]["qkv_proj"], tq.Q4Weight)
+    assert port.generator.prefill_params is port.generator.params  # no dense copy
+    want = _run(JaxEngine(cfg), AUDIO)
+    assert _run(port, AUDIO) == want
+    calls = []
+    inner = qmm.q4_matmul
+    monkeypatch.setattr(qmm, "q4_matmul", lambda x, w: calls.append(tuple(x.shape)) or inner(x, w))
+    monkeypatch.setattr(tq, "_q4_kernel_route", lambda x: True)
+    routed = _run(port, AUDIO)
+    n_layers = port.dec_cfg.num_layers
+    one_row = [s for s in calls if int(np.prod(s[:-1])) == 1]
+    down = sum(1 for s in one_row if s[-1] == 1024)  # one down_proj product per layer-step
+    steps = down // n_layers
+    assert steps > 0 and down == steps * n_layers
+    # per decode step qkv, o, gate_up and down of each layer and the head,
+    # plus the head once after each of the three chunks' prefills; the
+    # encoder's 26-row products of the 2 s chunks take the wrapper too
+    assert len(one_row) == steps * (4 * n_layers + 1) + 3
+    assert any(s[0] == 26 for s in calls)
+    assert routed == want
+
+
+def _golden(name: str) -> dict:
+    return json.loads((GOLDEN_DIR / f"{name}.json").read_text())
+
+
+def test_reproduces_golden_engine_int8(tmp_path):
+    """`tests/golden/engine_int8.json` (tiny-256, 2 s chunks, 3.5 s of a
+    550 Hz tone, greedy) was written by the jitted JAX engine. The port
+    reproduces its token counts and its first token, and then meets an exact
+    tie: at the second token its bf16 logits hold three equal maxima (tokens
+    347, 367 and 420 at 0.7109375). The port takes the first, as the JAX
+    engine does when it runs op by op (`jax.disable_jit()`), whose text the
+    port equals in full; the jitted program takes 367 (XLA keeps the head's
+    f32 values where the code rounds them to bf16). ROADMAP.md Queue 3
+    records the case; no bound is loosened for it."""
+    from qwen3_asr_gguf_tpu_torch.runtime import generate as tgen
+
+    for presets in (C.PRESETS, TC.PRESETS):
+        presets.setdefault("tiny-256", TINY_256)
+    make_synthetic_checkpoint(str(tmp_path), "tiny-256", quant="q4_k", seed=0)
+    cfg = _config(str(tmp_path), LLM, "int8")
+    engine = QwenASREngine(cfg, device="cpu", fused_mlp=False)
+    tops = []
+    inner = tgen.sample
+    tgen.sample = lambda logits, *a: tops.append(torch.topk(logits, 4)) or inner(logits, *a)
+    try:
+        got = _run(engine, _audio(3.5, 550.0))
+    finally:
+        tgen.sample = inner
+    golden = _golden("engine_int8")
+    assert (got[2], got[3]) == (golden["prefill_tokens"], golden["decode_tokens"])
+    assert got[1][0] == golden["text"][0]
+    assert got[1] != golden["text"]  # the tie below; drop this test's detour if it ever holds
+    tie = tops[1]
+    assert sorted(tie.indices[:3].tolist()) == [347, 367, 420]
+    assert tie.values[:3].tolist() == [0.7109375] * 3 and tie.values[3].item() < 0.7109375
+    assert got[0][0][1] == 347  # argmax takes the first of equal maxima
+    with jax.disable_jit():
+        want = _run(JaxEngine(cfg), _audio(3.5, 550.0))
+    assert got == want
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f16"])
+def test_half_precisions_still_raise(kernel_dir, precision):
+    with pytest.raises(NotImplementedError):
+        QwenASREngine(_config(kernel_dir, LLM, precision), device="cpu")
+
+
+@pytest.mark.parametrize("prec", ["int8", "q4_k"])
+def test_server_takes_the_new_precisions(kernel_dir, prec):
+    """`--prec int8|q4_k` build an engine and a continuous batcher whose
+    greedy text equals the engine's own on a full 2 s chunk."""
+    from qwen3_asr_gguf_tpu_torch.cli import serve
+
+    server, engine, batcher = serve.build(
+        ["--model-dir", kernel_dir, "--prec", prec, "--chunk-size", "2", "--n-ctx", "512",
+         "--device", "cpu", "--max-batch", "2"], max_new_tokens=8, decode_block=8)
+    try:
+        assert engine.config.precision == prec and engine.config.llm_fn == LLM
+        audio = _audio(2.0, 440.0)
+        want = engine.asr(audio, context="", language="English", chunk_size_sec=2.0,
+                          temperature=0.0).text
+        got = batcher.submit(audio, language="English", temperature=0.0).text
+        assert got == want and got
+    finally:
+        batcher.close()
