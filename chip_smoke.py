@@ -32,9 +32,10 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    encoder output, and the aligner's sparse logits on the card against an
    f32 CPU runner of the same checkpoint (cosine bound);
 7. the multi-row q4_k matmul against its plain version and, row by row,
-   against the matvec kernel, at T = 8 (the serving batch) and T = 64, and
-   the int8-KV rows attention against its plain version at B = 8 over a
-   2048-slot cache, windows 256, 1024 and 2048; both timed as in phase 3;
+   against the matvec kernel, at T = 8 (the serving batch) and T = 64, and at
+   T = 16 and 32 at o_proj and the LM head, and the int8-KV rows attention
+   against its plain version at B = 8 over a 2048-slot cache, windows 256,
+   1024 and 2048; both timed as in phase 3;
 8. one batched decode step (forward_step_rows, B = 8) through the kernels
    against the same step on dense weights with the plain attention, from
    the same prefilled caches, for bf16 and int8 KV (cosine bound);
@@ -45,8 +46,9 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
 10. a continuous batcher on an int8-KV engine (the `tools/bench_serve.py
    --kv int8` configuration): 16 greedy 10 s requests;
 11. the fused int4 dequant + matmul (q4_matmul) against its plain version at
-   the 1.7B decode shapes (T = 1: qkv, o, gate_up, down, the padded LM head)
-   and the encoder's fc1, fc2 and q_w at T = 26 and 52, and the fused int8
+   the 1.7B decode shapes (qkv, o, gate_up, down, the padded LM head) at
+   T = 1 (the engine's step), 8 (a server's rows step) and 64, and the
+   encoder's fc1, fc2 and q_w at T = 26 and 52, and the fused int8
    MLP (fused_mlp_matvec) at (D, M) = (2048, 6144) and (1024, 3072) with the
    number of flipped requantized values; both timed as in phase 3;
 12. QwenASREngine at precision "int8" (bf16 KV, aligner off) on the same
@@ -58,7 +60,10 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
 14. StreamingTranscriber on the q4_k engine (the `tools/bench_stream.py`
    settings: 2 s chunks, 16 new tokens per step, greedy): a 12 s clip, time
    to first text and the per-chunk latencies, and a second transcriber fed
-   the same PCM.
+   the same PCM;
+15. the server at `--prec q4_k --max-batch 8` answering 8 concurrent 10 s
+   requests over HTTP: q4_matmul at 8 rows on every product of the batched
+   step.
 
 Every kernel's launches are counted in the run of its path (counts set to 0
 just before it). The last lines are the kernels summary, the nvidia-smi
@@ -86,6 +91,8 @@ TIMED_RUNS = 50
 KERNEL_BOUND = 1e-2  # max|kernel - plain| <= KERNEL_BOUND * max|plain| (bf16 outputs)
 STEP_COSINE_BOUND = 0.99  # int8-activation kernel path vs dense bf16 weights
 ROWS_T = (8, 64)  # multi-row matmul batches: the serving default and the largest
+ROWS_T_BETWEEN = (16, 32)  # timed at o_proj and the LM head only
+QMM_DECODE_T = (1, 8, 64)  # q4_matmul rows on the decode shapes: engine step, rows step, most
 SERVE_CLIP_SECONDS = 10.0
 SERVE_REQUESTS = 16
 ALIGNER_PRESET = "qwen3-forced-aligner-0.6b"
@@ -265,8 +272,8 @@ def rel_check(torch, what: str, got, want) -> tuple[float, float]:
 
 
 def rows_kernel_phase(torch, dev, cfg) -> list[dict]:
-    """q4k_matmul_rows at T = 8 and 64 against its plain version and, row
-    by row, against q4k_matvec."""
+    """q4k_matmul_rows at T = 8 and 64 (o_proj and the LM head at 16 and 32
+    too) against its plain version and, row by row, against q4k_matvec."""
     from qwen3_asr_gguf_tpu_torch.ops import q4k
 
     g = torch.Generator(device=dev)
@@ -274,7 +281,8 @@ def rows_kernel_phase(torch, dev, cfg) -> list[dict]:
     rows = []
     for shape, n, k in decode_shapes(cfg):
         nbytes, weights = cold_weights(torch, dev, g, n, k)
-        for t in ROWS_T:
+        between = ROWS_T_BETWEEN if shape in ("o_proj", "lm_head") else ()
+        for t in sorted(ROWS_T + between):
             x = torch.randn((t, k), generator=g, device=dev).to(torch.bfloat16)
             kern = lambda w: q4k.q4k_matmul_rows(x, w)  # noqa: E731
             plain = lambda w: q4k.q4k_matmul_rows_ref(x, w)  # noqa: E731
@@ -509,17 +517,21 @@ def get_json(url: str) -> dict:
         return json.loads(r.read())
 
 
-def serve_phase(torch, dev, model_dir: Path) -> dict:
+def serve_phase(torch, dev, model_dir: Path, prec: str = "int4",
+                requests: int = SERVE_REQUESTS, long_request: bool = True) -> dict:
     """The port's server, built by its CLI from real arguments, on HTTP:
-    16 concurrent 10 s requests (8 tones, json and text) and one 50.2 s
-    request (two chunks with memory through successive rows)."""
+    concurrent 10 s requests (8 tones, json and text) and, with
+    `long_request`, one 50.2 s request (two chunks with memory through
+    successive rows). At "int4" every batched product is q4k_matmul_rows, at
+    "q4_k" it is q4_matmul at `--max-batch` rows."""
     from http.server import ThreadingHTTPServer
 
     from qwen3_asr_gguf_tpu_torch.cli import serve
-    from qwen3_asr_gguf_tpu_torch.ops import attn, q4k
+    from qwen3_asr_gguf_tpu_torch.ops import attn, q4k, qmm
 
-    argv = ["--model-dir", str(model_dir), "--max-batch", "8", "--n-ctx", "2048",
+    argv = ["--model-dir", str(model_dir), "--prec", prec, "--max-batch", "8", "--n-ctx", "2048",
             "--chunk-size", "40", "--device", str(dev)]
+    rows_kernel = {"int4": q4k.q4k_matmul_rows, "q4_k": qmm.q4_matmul}[prec]
     t0 = time.time()
     # the engine settings of the asr phase: random weights would decode 512 tokens
     server, engine, batcher = serve.build(argv, max_new_tokens=96, decode_block=96)
@@ -533,10 +545,11 @@ def serve_phase(torch, dev, model_dir: Path) -> dict:
         models = get_json(f"{url}/v1/models")
         require(models["data"][0]["id"] == serve.MODEL_NAME, f"/v1/models: {models}")
         jobs = [(tone(SERVE_CLIP_SECONDS, 200 + 50 * (i % 8)), "json" if i % 2 else "text")
-                for i in range(SERVE_REQUESTS)]
-        jobs.append((synthetic_clip(CLIP_SECONDS), "json"))
+                for i in range(requests)]
+        if long_request:
+            jobs.append((synthetic_clip(CLIP_SECONDS), "json"))
         for counter in (q4k.q4k_matvec, q4k.q4k_matvec_normed, q4k.q4k_matmul_rows,
-                        attn.gqa_rows_q8_attention):
+                        attn.gqa_rows_q8_attention, qmm.q4_matmul):
             counter.launches = 0
         blocks0 = batcher.stats["n_blocks"]
         t0 = time.time()
@@ -547,7 +560,8 @@ def serve_phase(torch, dev, model_dir: Path) -> dict:
         launches = {"q4k_matmul_rows": q4k.q4k_matmul_rows.launches,
                     "q4k_matvec": q4k.q4k_matvec.launches,
                     "q4k_matvec_normed": q4k.q4k_matvec_normed.launches,
-                    "gqa_rows_q8_attention": attn.gqa_rows_q8_attention.launches}
+                    "gqa_rows_q8_attention": attn.gqa_rows_q8_attention.launches,
+                    "q4_matmul": qmm.q4_matmul.launches}
         stats = get_json(f"{url}/stats")
     finally:
         httpd.shutdown()
@@ -561,15 +575,21 @@ def serve_phase(torch, dev, model_dir: Path) -> dict:
     lat = sorted(r[2] for r in results)
     audio_s = sum(len(a) for a, _ in jobs) / 16_000
     steps = (stats["batching"]["n_blocks"] - blocks0) * batcher.block
-    row = {"phase": "serve", "kv": "bf16", "argv": argv, "engine_init_s": init_s,
+    row = {"phase": "serve" if prec == "int4" else f"serve_{prec}", "kv": "bf16", "argv": argv,
+           "engine_init_s": init_s,
            "requests": len(jobs), "audio_s": audio_s, "wall_s": wall,
            "s_audio_per_s": audio_s / wall, "latency_p50_s": lat[len(lat) // 2],
            "latency_p95_s": lat[min(len(lat) - 1, math.ceil(0.95 * len(lat)) - 1)],
            "text_chars_min": min(len(t) for t in texts), "batcher": stats["batching"],
            "decode_steps": steps, "launches": launches,
-           "rows_matmul_launches_per_step": launches["q4k_matmul_rows"] / max(steps, 1)}
+           "rows_matmul_launches_per_step": launches[rows_kernel.__name__] / max(steps, 1)}
     emit(row)
-    require(launches["q4k_matmul_rows"] > 0, f"the multi-row matmul never launched: {launches}")
+    require(launches[rows_kernel.__name__] > 0, f"the rows kernel never launched: {launches}")
+    if prec == "q4_k":  # 4 products per layer and the head per step; the head once per prefill
+        per_step = 4 * engine.dec_cfg.num_layers + 1
+        require(launches["q4_matmul"] == per_step * steps + len(jobs),
+                f"serve_q4_k: {launches['q4_matmul']} q4_matmul launches for {steps} steps "
+                f"({per_step} each) and {len(jobs)} one-chunk requests")
     del server, engine, batcher
     torch.cuda.empty_cache()
     return row
@@ -615,17 +635,19 @@ def serve_int8_phase(torch, dev, model_dir: Path) -> dict:
 
 
 def qmm_kernel_phase(torch, dev, cfg) -> list[dict]:
-    """q4_matmul against its plain version: the decode step's one-row
-    products of the 1.7B q4_k engine and the encoder's at 26 and 52 rows."""
+    """q4_matmul against its plain version: the decode shapes of the 1.7B
+    q4_k engine at 1, 8 and 64 rows and the encoder's at 26 and 52 rows."""
     from qwen3_asr_gguf_tpu_torch.ops import qmm
     from qwen3_asr_gguf_tpu_torch.ops import qtensor as qt
 
     text, audio = cfg.text, cfg.audio
     d, m = text.hidden_size, text.intermediate_size
     hq, hkv, hd = text.num_heads, text.num_kv_heads, text.head_dim
-    cases = [("qkv_proj", 1, (hq + 2 * hkv) * hd, d), ("o_proj", 1, d, hq * hd),
-             ("gateup_proj", 1, 2 * m, d), ("down_proj", 1, d, m),
-             ("lm_head", 1, -(-text.vocab_size // 256) * 256, d)]  # padded to 256 rows
+    cases = []
+    for t in QMM_DECODE_T:
+        cases += [("qkv_proj", t, (hq + 2 * hkv) * hd, d), ("o_proj", t, d, hq * hd),
+                  ("gateup_proj", t, 2 * m, d), ("down_proj", t, d, m),
+                  ("lm_head", t, -(-text.vocab_size // 256) * 256, d)]  # padded to 256 rows
     for t in QMM_ENCODER_T:
         cases += [("enc_fc1", t, audio.encoder_ffn_dim, audio.d_model),
                   ("enc_fc2", t, audio.d_model, audio.encoder_ffn_dim),
@@ -650,8 +672,12 @@ def qmm_kernel_phase(torch, dev, cfg) -> list[dict]:
         err, scale = rel_check(torch, f"q4_matmul/{shape}/T={t}", kern(weights[0]),
                                plain(weights[0]))
         ms = time_ms(kern, weights, torch)
-        # every input read once, the output written once; 2 T N K f32 operations
-        least, by = bound_ms(nbytes + 2 * t * (k + n), 2 * t * n * k, "f32")
+        # every input read once, the output written once; the bf16 mma passes
+        # the kernel runs (whole 8-row tiles, one plane for a bf16 x). The
+        # first design did 2 T N K f32 operations outside the tensor cores.
+        moved = nbytes + 2 * t * (k + n)
+        least, by = bound_ms(moved, 2 * (-(-t // 8) * 8) * n * k, "bf16")
+        first_least, first_by = bound_ms(moved, 2 * t * n * k, "f32")
         n_dense = max(2, -(-(128 << 20) // (2 * n * k)))
         dense = [qt.dequant_q4(w, dtype=torch.bfloat16) for w in weights[:n_dense]]
         row = {"phase": "kernel_qmm", "name": "q4_matmul", "shape": shape, "t": t, "n": n,
@@ -659,6 +685,7 @@ def qmm_kernel_phase(torch, dev, cfg) -> list[dict]:
                "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain", "ok": True,
                "ms": ms, "plain_ms": time_ms(plain, weights, torch),
                "bound_ms": least, "bound_by": by,
+               "first_design_bound_ms": first_least, "first_design_bound_by": first_by,
                "library_ms": time_ms(lambda w: torch.matmul(x, w.T), dense, torch),
                "library": "torch.matmul on the dequantized bf16 weight (2.7x the weight bytes)",
                "weight_mb": nbytes / 1e6, "gb_per_s": nbytes / (ms * 1e6)}
@@ -1275,6 +1302,7 @@ def main() -> int:
     ran_q4k = asr_q4k_phase(torch, dev, model_dir, audio)
     served = serve_phase(torch, dev, model_dir)
     served_int8 = serve_int8_phase(torch, dev, model_dir)
+    serve_phase(torch, dev, model_dir, prec="q4_k", requests=8, long_request=False)
     # each kernel's launches from the run of its own path
     launches["q4k_matmul_rows"] = served["launches"]["q4k_matmul_rows"]
     launches["gqa_rows_q8_attention"] = served_int8["launches"]["gqa_rows_q8_attention"]

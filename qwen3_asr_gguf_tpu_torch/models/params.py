@@ -9,7 +9,7 @@ cached beside the checkpoint (the JAX package's `.int4/` sidecars hold its
 own layout and are neither read nor written here). The int8 path
 requantizes q4_k content to per-channel int8 (`ops.qtensor.Int8Weight`) on
 the host, as the JAX package does; the q4_k path keeps each q4_k tensor as
-planar `ops.qtensor.Q4Weight` (the GGUF's own scales, no repack).
+planar `ops.qtensor.Q4Weight` (the GGUF's own scales; columns in natural order).
 """
 
 from __future__ import annotations
@@ -409,8 +409,8 @@ def _convert_leaf(v, device, index=None):
         return Q4KWeight(*(_np_to_torch(pick(getattr(v, f)), device)
                            for f in ("packed", "sub_t", "min_t", "dd_t")))
     if all(hasattr(v, f) for f in ("packed", "scale", "minv")):
-        return Q4Weight(*(_np_to_torch(pick(getattr(v, f)), device)
-                          for f in ("packed", "scale", "minv")))
+        return Q4Weight.from_reference(*(pick(getattr(v, f)) for f in ("packed", "scale", "minv")),
+                                       device=device)
     if all(hasattr(v, f) for f in ("q", "scale")):
         return Int8Weight(*(_np_to_torch(pick(getattr(v, f)), device) for f in ("q", "scale")))
     return _np_to_torch(pick(v), device)

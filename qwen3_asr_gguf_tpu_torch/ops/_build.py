@@ -57,10 +57,11 @@ _SIGNATURES = {
     ],
     "q4k_matmul_rows_launch": [
         _P, _I,  # x, x_is_bf16
-        _P, _P, _P,  # xq, sx, xsum (scratch)
+        _P, _P,  # xq, sxs (scratch)
         _P, _P, _P, _P,  # packed, sub_t, min_t, dd_t
         _P, _I,  # out, out_is_bf16
         _I, _I, _I,  # t, n, k
+        _I, _I,  # channel pairs per block, blocks that split K
         _P,  # stream
     ],
     "gqa_rows_q8_attention_launch": [
@@ -80,9 +81,11 @@ _SIGNATURES = {
     ],
     "q4_matmul_launch": [
         _P, _I,  # x, x_is_bf16 (out takes x's dtype)
+        _P,  # scratch of 2*t*k bf16 for an f32 x (null for bf16)
         _P, _P, _P,  # packed, scale, minv
         _P,  # out
         _I, _I, _I,  # t, n, k
+        _I, _I, _I,  # channel tiles of 16 per block, group pairs per K chunk, blocks that split K
         _P,  # stream
     ],
     "fused_mlp_launch": [

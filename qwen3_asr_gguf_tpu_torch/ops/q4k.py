@@ -16,7 +16,8 @@ q*scale + (8*scale - minv). The matvec quantizes the activation row to int8
 per 32-group (x * reciprocal(sx), round half to even), takes exact int32
 group dots and applies the scales per group, as the TPU kernel does. The
 multi-row matmul (serving's batched decode step) does the same for each of
-T rows (T % 8 == 0, T <= 64), streaming each weight once per 8 rows.
+T rows (T % 8 == 0, T <= 64) on the tensor cores, streaming each weight once
+for all rows.
 
 A wrapper runs its plain PyTorch version only for a tensor on the CPU. For a
 CUDA tensor it launches the kernel or raises.
@@ -32,10 +33,15 @@ import torch
 from ..formats import quants as q
 
 from . import _build
+from ._order import fma, sum_in_order
 
 GROUP = 32  # q4_k quant group along K
 BN = 512  # channel tile of the TPU kernel; `supported` keeps its conditions
-T_TILE = 8  # activation rows per weight pass of the multi-row matmul
+T_TILE = 8  # activation rows of one tensor-core tile of the multi-row matmul
+ROWS_CHUNK_GROUPS = 16  # 32-groups per K chunk of the multi-row kernel (512 of K)
+ROWS_WARPS = 8  # warps of a block: channel tiles of 8 pairs times K slices
+ROWS_MIN_BLOCKS = 64  # blocks along N below which a block narrows
+ROWS_FILL_BLOCKS = 96  # blocks in all that a split of K makes up to
 MAX_K = 12288  # the kernels stage a quantized activation row in shared memory
 
 
@@ -222,6 +228,69 @@ def q4k_matmul_rows_ref(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
     return _matmul_rows_f32(x.float(), w).to(x.dtype)
 
 
+def rows_tiling(n: int, k: int) -> tuple[int, int]:
+    """(channel pairs per block, blocks that split K) of the multi-row
+    kernel. A block's 8 warps are pairs/8 channel tiles times 64/pairs K
+    slices; a cluster of up to 8 blocks splits K's chunks of 512 evenly. The
+    widest block of 64, 32, 16, 8 pairs that still leaves `ROWS_MIN_BLOCKS`
+    blocks is taken (a wide block reads the activation rows once for more
+    channels), with the smallest split that reaches `ROWS_FILL_BLOCKS`; a
+    weight too small for that takes the largest split first, then the widest
+    block."""
+    chunks = k // (ROWS_CHUNK_GROUPS * GROUP)
+    splits = [d for d in range(1, 9) if chunks % d == 0]
+    widths = (64, 32, 16, 8)
+    for ct in widths:
+        blocks = (n // 2) // ct
+        if blocks >= ROWS_MIN_BLOCKS:
+            fit = [d for d in splits if blocks * d >= ROWS_FILL_BLOCKS]
+            return ct, (fit[0] if fit else splits[-1])
+    for ct in widths:
+        if (n // 2) // ct * splits[-1] >= ROWS_MIN_BLOCKS:
+            return ct, splits[-1]
+    return 8, splits[-1]
+
+
+def quantize_act_kernel_order(xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`quantize_act_ref` with the group sum taken as pass A of the multi-row
+    kernel takes it: eight lanes of four values, ((v0+v1)+v2)+v3 in each, then
+    three butterfly steps."""
+    xq, sx, _ = quantize_act_ref(xf)
+    lanes = xf.reshape(-1, 8, 4)
+    s = ((lanes[..., 0] + lanes[..., 1]) + lanes[..., 2]) + lanes[..., 3]  # [groups, 8]
+    for _ in range(3):
+        s = s[:, 0::2] + s[:, 1::2]
+    return xq, sx, s.reshape(sx.shape)
+
+
+def q4k_matmul_rows_kernel_order(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
+    """`q4k_matmul_rows` step by step as the CUDA kernel computes it: the
+    same quantization and exact integer group dots as the plain version, the
+    groups of each K slice of each block (`rows_tiling`) added in order with
+    acc = fma(xsum, offs, fma(dot*sx, scale, acc)), then the slices in
+    order, then the blocks that split K in order. Differs from
+    `q4k_matmul_rows_ref` by the f32 sum order only."""
+    n, k = w.shape
+    g = k // GROUP
+    t = x.shape[0]
+    xq, sx, xsum = quantize_act_kernel_order(x.float())
+    ct, ks = rows_tiling(n, k)
+    k_slices = ROWS_WARPS // (ct // 8)
+    per_slice = ROWS_CHUNK_GROUPS // k_slices
+    per_block = g // ROWS_CHUNK_GROUPS // ks  # chunks of one block of the cluster
+    ints = _signed_nibbles(w.packed).float().reshape(n, g, GROUP)
+    dots = torch.einsum("ngk,tgk->tng", ints, xq.float().reshape(t, g, GROUP))  # exact
+    scale, minv = _expand_scales(w)
+    offs = 8.0 * scale - minv
+    parts = [[torch.zeros(t, n) for _ in range(k_slices)] for _ in range(ks)]
+    for gi in range(g):
+        mine = parts[gi // ROWS_CHUNK_GROUPS // per_block]
+        s = (gi % ROWS_CHUNK_GROUPS) // per_slice
+        acc = fma(dots[:, :, gi] * sx[:, gi, None], scale[None, :, gi], mine[s])
+        mine[s] = fma(xsum[:, gi, None], offs[None, :, gi], acc)
+    return sum_in_order([sum_in_order(mine) for mine in parts]).to(x.dtype)
+
+
 def q4k_matvec_normed_ref(x: torch.Tensor, w: Q4KWeight, norm_w: torch.Tensor,
                           eps: float) -> torch.Tensor:
     """Plain version of `q4k_matvec_normed`: rms_norm(x)*norm_w in f32, the
@@ -286,11 +355,11 @@ def _check_cuda_args(x: torch.Tensor, w: Q4KWeight, what: str, rows: int = 1) ->
         raise ValueError(f"{what}: weight planes are not aligned for vector loads")
 
 
-def _scratch(x: torch.Tensor, k: int, rows: int = 1):
+def _scratch(x: torch.Tensor, k: int):
     g = k // GROUP
-    return (torch.empty(rows * k, dtype=torch.int8, device=x.device),
-            torch.empty(rows * g, dtype=torch.float32, device=x.device),
-            torch.empty(rows * g, dtype=torch.float32, device=x.device))
+    return (torch.empty(k, dtype=torch.int8, device=x.device),
+            torch.empty(g, dtype=torch.float32, device=x.device),
+            torch.empty(g, dtype=torch.float32, device=x.device))
 
 
 def q4k_matvec(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
@@ -341,21 +410,25 @@ def q4k_matvec_normed(x: torch.Tensor, w: Q4KWeight, norm_w: torch.Tensor,
 
 def q4k_matmul_rows(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
     """x [T, K] @ dequant(w).T -> [T, N] in x's dtype (T % 8 == 0, T <= 64):
-    each row as `q4k_matvec` computes it, one weight stream per 8 rows."""
+    each row as `q4k_matvec` computes it (the f32 sums over the groups in
+    another order), one weight stream for all rows."""
     if not x.is_cuda:
         return q4k_matmul_rows_ref(x, w)
     if not supported_rows(tuple(x.shape), w):
         raise ValueError(f"q4k_matmul_rows: unsupported x {tuple(x.shape)} for weight {w.shape}")
     t = x.shape[0]
     _check_cuda_args(x, w, "q4k_matmul_rows", rows=t)
+    if any(p.data_ptr() % 16 for p in (x, w.sub_t, w.min_t, w.dd_t)):
+        raise ValueError("q4k_matmul_rows: x and the scale planes must be 16-byte aligned")
     n, k = w.shape
-    xq, sx, xsum = _scratch(x, k, rows=t)
+    xq = torch.empty(t * k, dtype=torch.int8, device=x.device)
+    sxs = torch.empty((k // GROUP) * t * 2, dtype=torch.float32, device=x.device)
     out = torch.empty(t, n, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _build.lib().q4k_matmul_rows_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), xq.data_ptr(), sx.data_ptr(),
-        xsum.data_ptr(), w.packed.data_ptr(), w.sub_t.data_ptr(), w.min_t.data_ptr(),
-        w.dd_t.data_ptr(), out.data_ptr(), int(out.dtype == torch.bfloat16), t, n, k, stream,
+        x.data_ptr(), int(x.dtype == torch.bfloat16), xq.data_ptr(), sxs.data_ptr(),
+        w.packed.data_ptr(), w.sub_t.data_ptr(), w.min_t.data_ptr(), w.dd_t.data_ptr(),
+        out.data_ptr(), int(out.dtype == torch.bfloat16), t, n, k, *rows_tiling(n, k), stream,
     )
     _build.check(rc, "q4k_matmul_rows")
     _build.count_launch(q4k_matmul_rows)

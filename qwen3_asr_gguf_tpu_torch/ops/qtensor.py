@@ -20,14 +20,20 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..formats.quants import PackedQ4
+from ..formats.quants import GROUP_Q4, PackedQ4, rank_major_inverse
 
 from . import q4k, qmm
 
 
 @dataclass
 class Q4Weight:
-    """Planar rank-major int4 (`formats.quants.PackedQ4` on the device)."""
+    """Planar int4 (`formats.quants.PackedQ4` on the device) in NATURAL column
+    order: byte j of `packed` holds element j of the first half of K in its
+    low nibble and element K//2 + j in its high nibble. The reference packs
+    group-32 weights rank-major (column r*G + g holds element g*32 + r);
+    `from_reference` undoes that once, on the host, so that a 32-group is 32
+    contiguous bytes for the kernel. Scales and offsets are untouched and the
+    dequantized values are bit-equal."""
 
     packed: torch.Tensor  # uint8 [N, K//2]
     scale: torch.Tensor  # f32 [N, K//32]
@@ -39,28 +45,31 @@ class Q4Weight:
         return (n, k2 * 2)
 
     @classmethod
-    def from_packed(cls, p: PackedQ4, device="cpu") -> "Q4Weight":
+    def from_reference(cls, packed, scale, minv, device="cpu") -> "Q4Weight":
+        """The reference's planes (numpy; `packed` rank-major where the group
+        is 32 and each half of K holds whole groups, as `is_rank_major`
+        says) as a port weight."""
+        packed = np.asarray(packed)
+        k2 = packed.shape[-1]
+        if 2 * k2 // np.asarray(scale).shape[-1] == GROUP_Q4 and k2 % GROUP_Q4 == 0:
+            packed = packed[..., rank_major_inverse(k2)]
         return cls(
-            packed=torch.from_numpy(np.ascontiguousarray(p.packed)).to(device),
-            scale=torch.from_numpy(np.ascontiguousarray(p.scale, np.float32)).to(device),
-            minv=torch.from_numpy(np.ascontiguousarray(p.minv, np.float32)).to(device),
+            packed=torch.from_numpy(np.ascontiguousarray(packed, np.uint8)).to(device),
+            scale=torch.from_numpy(np.ascontiguousarray(scale, np.float32)).to(device),
+            minv=torch.from_numpy(np.ascontiguousarray(minv, np.float32)).to(device),
         )
+
+    @classmethod
+    def from_packed(cls, p: PackedQ4, device="cpu") -> "Q4Weight":
+        return cls.from_reference(p.packed, p.scale, p.minv, device=device)
 
 
 def dequant_q4(w: Q4Weight, dtype=torch.bfloat16) -> torch.Tensor:
-    """Dense [N, K] from the planar layout, undoing the rank-major permute."""
+    """Dense [N, K] from the planar layout: q*scale - minv in f32, then
+    `dtype`."""
     n, k = w.shape
     group = k // w.scale.shape[1]
-    low = w.packed & 0x0F
-    high = w.packed >> 4
-    if group == 32 and (k // 2) % 32 == 0:
-        g_half = k // 64
-
-        def unperm(h):
-            return h.reshape(n, 32, g_half).transpose(1, 2).reshape(n, k // 2)
-
-        low, high = unperm(low), unperm(high)
-    qv = torch.cat([low, high], dim=-1)  # planar: [first half | second half]
+    qv = torch.cat([w.packed & 0x0F, w.packed >> 4], dim=-1)  # [first half | second half]
     qf = qv.reshape(n, -1, group).float()
     dense = qf * w.scale[..., None] - w.minv[..., None]
     return dense.reshape(n, k).to(dtype)

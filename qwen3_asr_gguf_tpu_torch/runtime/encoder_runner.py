@@ -26,7 +26,7 @@ SAMPLE_RATE = 16_000
 class EncoderRunner:
     def __init__(self, params: dict, cfg: AudioEncoderConfig, *,
                  mel_filters: np.ndarray | None = None, bucket_frames: int = 500,
-                 device="cpu"):
+                 device="cuda"):
         self.params = params
         self.cfg = cfg
         self.device = torch.device(device)

@@ -60,7 +60,7 @@ class Generator:
         block: int = 64,
         dequant_prefill: bool = False,  # prefill on a dense bf16 copy of int4 weights
         fused_mlp: bool | None = None,
-        device="cpu",
+        device="cuda",
     ):
         """`fused_mlp`: the decode step's MLP through the fused int8 kernel
         (`ops.mlp.fused_mlp_matvec`) where the weights allow it
@@ -242,7 +242,7 @@ class SparseLogitsRunner:
     query rows stay finite under the -1e30 mask) but pins which rows exist."""
 
     def __init__(self, params: dict, cfg: TextDecoderConfig, *, n_ctx: int = 2048,
-                 device="cpu"):
+                 device="cuda"):
         self.params = params
         self.cfg = cfg
         self.n_ctx = n_ctx

@@ -211,7 +211,7 @@ def test_sparse_logits_runner_vs_jax(f32_dir):
     jcfg, jparams, _ = jP.load_decoder_gguf(path, precision="f32")
     tcfg, tparams, _ = tP.load_decoder_gguf(path, precision="f32")
     jrun = JaxRunner(jP.fuse_layer_weights(jparams), jcfg, n_ctx=512)
-    trun = SparseLogitsRunner(tP.fuse_layer_weights(tparams), tcfg, n_ctx=512)
+    trun = SparseLogitsRunner(tP.fuse_layer_weights(tparams), tcfg, n_ctx=512, device="cpu")
     assert trun._prompt_pad(40) == jrun._prompt_pad(40) == 256
     assert trun._prompt_pad(500) == jrun._prompt_pad(500) == 512
     rng = np.random.default_rng(5)

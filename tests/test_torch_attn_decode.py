@@ -197,7 +197,8 @@ def test_generator_windows_are_whole_tiles_at_any_n_ctx(n_ctx, slots, monkeypatc
     meets a window it refuses on the card."""
     cfg = TINY
     tp = tP.fuse_layer_weights(tP.from_jax_params(_numpy_params(cfg, 0)))
-    gen = Generator(tp, cfg, n_ctx=n_ctx, eos_ids=(), cache_dtype=torch.float32, block=8)
+    gen = Generator(tp, cfg, n_ctx=n_ctx, eos_ids=(), cache_dtype=torch.float32, block=8,
+                    device="cpu")
     cache = gen.new_cache()
     assert all(t.shape[0] == slots for t in cache["k"] + cache["v"])
     wins = []

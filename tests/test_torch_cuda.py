@@ -10,12 +10,15 @@ rounding of differently ordered f32 sums, and at most a one-step flip of an
 int8 activation where the fused norm's rsqrt rounds differently), and
 1e-4 * max|plain| for f32 outputs of the unfused kernel (f32 sum order only).
 The multi-row matmul is held to the matvec kernel row by row (the same
-per-row math, f32 sums in another order): 1e-4 * max|matvec| on f32 outputs.
+per-row math, f32 sums in another order): 1e-4 * max|matvec| on f32 outputs;
+its kernel-order plain version repeats those sums, and the kernel is held to
+it at 1e-5.
 The decode attention: 1e-2 * max|plain| over a bf16 cache (bf16 rounding of
 the probabilities and the output), 1e-4 * max|plain| over an f32 cache (the
 online softmax's f32 sums in another order).
-The fused int4 dequant + matmul (`q4_matmul`): f32 weights and f32 sums in
-another order: 1e-4 * max|plain| on f32 outputs, 1e-2 on bf16 ones.
+The fused int4 dequant + matmul (`q4_matmul`): the group factored, x in bf16
+planes on the tensor cores (an f32 x as hi + lo, dropping 2^-17 of x) and f32
+sums in another order: 1e-4 * max|plain| on f32 outputs, 1e-2 on bf16 ones.
 The fused int8 MLP: its integer dots are exact, so it differs from the plain
 version by the ulp of expf in the logistic, which can move an act value
 across a .5 boundary of the per-tile requantization: a flipped int8 changes
@@ -93,7 +96,7 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [8, 16, 64])
+@pytest.mark.parametrize("t", [8, 16, 24, 40, 64])
 @pytest.mark.parametrize("n,k", [(2048, 2048), (2048, 6144), (4096, 512)])
 def test_matmul_rows_each_row_equals_matvec(cuda, t, n, k):
     w = _weight(n, k, n + k + t, cuda)
@@ -106,6 +109,46 @@ def test_matmul_rows_each_row_equals_matvec(cuda, t, n, k):
     assert _rel_err(got, rows) <= 1e-4
     assert _rel_err(q4k.q4k_matmul_rows(x.bfloat16(), w), q4k.q4k_matmul_rows_ref(
         x.bfloat16(), w)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(2048, 2048), (4096, 1024), (152576, 2048)])
+def test_matmul_rows_every_block_width(cuda, n, k):
+    """Blocks of 16, 32 and 64 channel pairs, with and without a split of K
+    (`rows_tiling`): against the plain version and against the kernel-order
+    plain version, which repeats the kernel's f32 sums (1e-5: the fma's
+    double rounding at most)."""
+    assert q4k.rows_tiling(n, k) == {2048: (16, 2), 4096: (32, 2), 152576: (64, 1)}[n]
+    w = _weight(n, k, n + k, cuda)
+    x = torch.randn(16, k, generator=torch.Generator().manual_seed(n)).to(cuda)
+    got = q4k.q4k_matmul_rows(x, w)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, q4k.q4k_matmul_rows_ref(x, w)) <= 1e-4
+    if n <= 4096:
+        cpu_w = w.to("cpu")
+        assert _rel_err(got.cpu(), q4k.q4k_matmul_rows_kernel_order(x.cpu(), cpu_w)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 1e-2), (torch.float32, 1e-4)])
+def test_matmul_rows_zero_row_and_large_row(cuda, dtype, bound):
+    """A row of zeros (sx takes its 1e-10 floor, every int8 is 0) and a row
+    of +-1e4 (every value at the +-127 clip) beside ordinary rows."""
+    n, k = 2048, 2048
+    w = _weight(n, k, 77, cuda)
+    x = torch.randn(8, k, generator=torch.Generator().manual_seed(5))
+    x[2] = 0.0
+    x[5] = torch.where(x[5] > 0, 1e4, -1e4)
+    x = x.to(cuda, dtype)
+    got = q4k.q4k_matmul_rows(x, w)
+    want = q4k.q4k_matmul_rows_ref(x, w)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    for row in (0, 5):  # each row against its own scale
+        assert _rel_err(got[row], want[row]) <= bound
+    rows = torch.cat([q4k.q4k_matvec(x[i:i + 1], w) for i in range(8)])
+    assert _rel_err(got[5], rows[5]) <= bound
 
 
 def _q8_cache(b, s, hkv, d, seed, device):
@@ -307,6 +350,23 @@ def test_q4_matmul_vs_plain(cuda, t, n, k, dtype, bound):
     assert _rel_err(got, qmm.q4_matmul_ref(x, w)) <= bound
     if t == 1:  # a bare [K] row, as lm_logits passes it
         assert torch.equal(qmm.q4_matmul(x[0], w), got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n,k", [(1, 2048, 2048), (8, 4096, 2048), (26, 1024, 1024),
+                                   (52, 4096, 1024), (64, 512, 896), (5, 24, 320)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q4_matmul_vs_kernel_order_plain(cuda, t, n, k, dtype):
+    """The kernel against the plain function that repeats its arithmetic
+    (bf16 planes, factored groups, K slices): only the sums inside a group
+    differ, so f32 outputs agree to 1e-5 of max|plain| (bf16 ones to one
+    rounding, 1e-2). K = 896 and 320 end in a partial chunk."""
+    w = _q4_weight(n, k, n + k + t, cuda)
+    x = torch.randn(t, k, generator=torch.Generator().manual_seed(t)).to(cuda, dtype)
+    got = qmm.q4_matmul(x, w)
+    cpu_w = tq.Q4Weight(w.packed.cpu(), w.scale.cpu(), w.minv.cpu())
+    want = qmm.q4_matmul_kernel_order(x.cpu(), cpu_w)
+    assert _rel_err(got.cpu(), want) <= (1e-5 if dtype == torch.float32 else 1e-2)
 
 
 @pytest.mark.cuda

@@ -93,7 +93,7 @@ def runners(tmp_path_factory):
     jcfg, jparams = jP.load_encoder_quantized(path, kind="int4")
     tcfg, tparams = tP.load_encoder_quantized(path, kind="int4")
     assert asdict(jcfg) == asdict(tcfg) == asdict(cfg)  # one class per package
-    return JRunner(jparams, jcfg), TRunner(tparams, tcfg)
+    return JRunner(jparams, jcfg), TRunner(tparams, tcfg, device="cpu")
 
 
 @pytest.mark.parametrize("n", [32000, 16000 + 5555])

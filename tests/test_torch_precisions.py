@@ -165,16 +165,17 @@ def test_fused_mlp_is_the_generators_choice(kernel_dir):
     path = os.path.join(kernel_dir, LLM)
     cfg, params, _ = tP.load_decoder_gguf(path, precision="int8")
     fused = tP.fuse_layer_weights(params)
-    assert not Generator(fused, cfg, n_ctx=256).fused_mlp
-    gen = Generator(fused, cfg, n_ctx=256, fused_mlp=True)
+    assert not Generator(fused, cfg, n_ctx=256, device="cpu").fused_mlp
+    gen = Generator(fused, cfg, n_ctx=256, fused_mlp=True, device="cpu")
     assert gen.fused_mlp and gen.layers_list is gen.layers_list
     assert "gateup_proj" not in gen.layers_list[0] and "gateup_proj" in gen.params["layers"][0]
     assert gen.layers_list[0]["gate_proj"].q.data_ptr() \
         == gen.params["layers"][0]["gateup_proj"].q.data_ptr()  # views, no copy
-    off = Generator(fused, cfg, n_ctx=256, fused_mlp=False)
+    off = Generator(fused, cfg, n_ctx=256, fused_mlp=False, device="cpu")
     assert not off.fused_mlp and off.layers_list is off.params["layers"]
     _, q4, _ = tP.load_decoder_gguf(path, precision="q4_k")
-    assert not Generator(tP.fuse_layer_weights(q4), cfg, n_ctx=256, fused_mlp=True).fused_mlp
+    assert not Generator(tP.fuse_layer_weights(q4), cfg, n_ctx=256, fused_mlp=True,
+                         device="cpu").fused_mlp
 
 
 # --------------------------------------------------------------------------

@@ -100,7 +100,7 @@ def test_bucketed_encode_vs_jax_runner(model_dir, seconds):
     path = os.path.join(model_dir, "qwen3_asr_encoder.safetensors")
     jcfg, jparams = jP.load_encoder_safetensors(path)
     tcfg, tparams = tP.load_encoder_safetensors(path)
-    jrun, trun = JaxRunner(jparams, jcfg), EncoderRunner(tparams, tcfg)
+    jrun, trun = JaxRunner(jparams, jcfg), EncoderRunner(tparams, tcfg, device="cpu")
     audio = _audio(seconds, 330.0)
     n_valid = trun.valid_tokens(len(audio))
     assert n_valid == jrun.valid_tokens(len(audio))
