@@ -15,8 +15,9 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    torch.matmul on the dequantized bf16 weight and the least time the card
    could take (bytes over its memory rate, operations over its peak rate);
    the single-token decode attention the same way over a 2048-slot bf16
-   cache (windows 256, 1024, 2048; an f32 cache too), beside one
-   scaled_dot_product_attention call;
+   cache (windows 256, 1024, 2048; an f32 cache too; `pos` a device tensor,
+   timed at win - 1 and mid-window; one CUDA graph of it replayed at three
+   other positions), beside one scaled_dot_product_attention call;
 4. builds the native codec (when g++ is present) and random-weight
    qwen3-asr-1.7b and qwen3-forced-aligner-0.6b q4_k checkpoints in
    .bench_cache/torch/;
@@ -38,7 +39,11 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    1024 and 2048; both timed as in phase 3;
 8. one batched decode step (forward_step_rows, B = 8) through the kernels
    against the same step on dense weights with the plain attention, from
-   the same prefilled caches, for bf16 and int8 KV (cosine bound);
+   the same prefilled caches, for bf16 and int8 KV (cosine bound); then the
+   engine's greedy text against a ContinuousBatcher's at max_batch 8 on one
+   40 s chunk, 15 new tokens (phase batcher_vs_engine: where they part, a
+   near-tie within 2 bf16 ulp), and max_batch 4 on whole 8-row tiles of the
+   multi-row kernel (113 launches per batched step; 72 rows refused);
 9. the port's OpenAI-compatible server, built by its CLI's build function
    from real arguments (continuous batching, 8 rows, bf16 KV), answering 16
    concurrent 10 s requests and one 50.2 s request over HTTP, with
@@ -63,7 +68,10 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    the same PCM;
 15. the server at `--prec q4_k --max-batch 8` answering 8 concurrent 10 s
    requests over HTTP: q4_matmul at 8 rows on every product of the batched
-   step.
+   step;
+16. the kernels that one q4k_matvec call puts on the device (torch.profiler:
+   one) and one q4k_matvec_normed call (two), at each decode shape: last,
+   so that no profiler session precedes a timed phase.
 
 Every kernel's launches are counted in the run of its path (counts set to 0
 just before it). The last lines are the kernels summary, the nvidia-smi
@@ -119,6 +127,7 @@ SOURCES = {
 QMM_ENCODER_T = (26, 52)  # encoder rows of 2 s and 4 s of audio
 MLP_FLIP_LIMIT = 4  # requantized act values that may differ from the plain version's
 STREAM_SECONDS, STREAM_CHUNK_SECONDS, STREAM_NEW_TOKENS = 12.0, 2.0, 16
+BATCH_NEW_TOKENS = 15  # batcher_vs_engine: below the breaker's 16-token window
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense): the bound of a
 # kernel is the larger of its bytes over the memory rate and its operations
 # over the peak rate for their type
@@ -191,19 +200,22 @@ def decode_shapes(cfg) -> list[tuple[str, int, int]]:
 def cold_weights(torch, dev, g, n, k):
     """(bytes of one weight, copies of a random q4_k weight [N, K] on the
     card, enough to exceed the 128 MB that keeps each call cold in L2)."""
+    nbytes = n * k // 2 + 2 * (k // 32) * n + 4 * (k // 128) * n
+    return nbytes, [random_q4k_weight(torch, dev, g, n, k)
+                    for _ in range(max(2, -(-(128 << 20) // nbytes)))]
+
+
+def random_q4k_weight(torch, dev, g, n, k):
+    """A random q4_k weight [N, K] drawn on the card: any bytes are a valid
+    q4_k weight in this layout."""
     from qwen3_asr_gguf_tpu_torch.ops import q4k
 
-    def random_weight():
-        # any bytes are a valid q4_k weight in this layout: draw it on the card
-        return q4k.Q4KWeight(
-            packed=torch.randint(0, 256, (n // 2, k), generator=g, device=dev, dtype=torch.uint8),
-            sub_t=torch.randint(0, 64, (k // 32, n), generator=g, device=dev, dtype=torch.int8),
-            min_t=torch.randint(0, 64, (k // 32, n), generator=g, device=dev, dtype=torch.int8),
-            dd_t=torch.rand((2 * (k // 256), n), generator=g, device=dev) * 1e-3,
-        )
-
-    nbytes = n * k // 2 + 2 * (k // 32) * n + 4 * (k // 128) * n
-    return nbytes, [random_weight() for _ in range(max(2, -(-(128 << 20) // nbytes)))]
+    return q4k.Q4KWeight(
+        packed=torch.randint(0, 256, (n // 2, k), generator=g, device=dev, dtype=torch.uint8),
+        sub_t=torch.randint(0, 64, (k // 32, n), generator=g, device=dev, dtype=torch.int8),
+        min_t=torch.randint(0, 64, (k // 32, n), generator=g, device=dev, dtype=torch.int8),
+        dd_t=torch.rand((2 * (k // 256), n), generator=g, device=dev) * 1e-3,
+    )
 
 
 def dense_matmul_ms(torch, x, weights: list) -> float:
@@ -351,11 +363,54 @@ def attn_kernel_phase(torch, dev, cfg) -> list[dict]:
     return rows
 
 
+def device_kernels_phase(torch, dev, cfg) -> dict:
+    """The kernels that one call of the q4_k matvec wrappers puts on the
+    device (torch.profiler, CUDA events only), at every decode shape: one for
+    q4k_matvec, two for q4k_matvec_normed (pass A, pass B). Run after every
+    timed phase, so that no profiler session precedes a timing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qwen3_asr_gguf_tpu_torch.ops import q4k
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    # a first session whose events are thrown away: the first session of a
+    # process may see no device events at all while CUPTI comes up
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device=dev).add_(1.0)
+        torch.cuda.synchronize()
+    per_call = {}
+    for shape, n, k in decode_shapes(cfg):
+        w = random_q4k_weight(torch, dev, g, n, k)
+        x = torch.randn((1, k), generator=g, device=dev).to(torch.bfloat16)
+        norm_w = torch.ones(k, device=dev)
+        if shape in ("qkv_proj", "gateup_proj"):
+            name, kern = "q4k_matvec_normed", lambda: q4k.q4k_matvec_normed(x, w, norm_w, 1e-6)
+        else:
+            name, kern = "q4k_matvec", lambda: q4k.q4k_matvec(x, w)
+        kern()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kern()
+            torch.cuda.synchronize()
+        per_call[f"{name}/{shape}"] = [e.name for e in prof.events()
+                                       if e.device_type == torch.autograd.DeviceType.CUDA]
+    row = {"phase": "device_kernels", "per_call": {c: len(v) for c, v in per_call.items()}}
+    emit(row)
+    for case, launched in per_call.items():
+        want = 1 if case.startswith("q4k_matvec/") else 2
+        require(len(launched) == want, f"{case}: {launched} on the device for one call")
+    return row
+
+
 def decode_attn_kernel_phase(torch, dev, cfg) -> list[dict]:
     """gqa_decode_attention against its plain version at the 1.7B shape: one
     query over a 2048-slot cache, bf16 (bound KERNEL_BOUND) and f32 (bound
-    F32_KERNEL_BOUND), at several positions per window; timed at pos =
-    win - 1 beside one scaled_dot_product_attention call on the [:win] views."""
+    F32_KERNEL_BOUND), at several positions per window, `pos` a 1-element
+    int32 tensor on the card; one CUDA graph of the kernel captured at one
+    position and replayed after the device `pos` is written to three others;
+    timed at pos = win - 1 and at a mid-window pos beside one
+    scaled_dot_product_attention call on the [:win] views."""
     from qwen3_asr_gguf_tpu_torch.ops import attn
 
     s_max = 2048
@@ -369,14 +424,23 @@ def decode_attn_kernel_phase(torch, dev, cfg) -> list[dict]:
                     for _ in "kv") for _ in range(16)]
     caches32 = tuple(c.float() * (1 + 1e-3 * torch.rand(c.shape, generator=g, device=dev))
                      for c in caches[0])
+
+    def device_pos(pos):
+        return torch.tensor([pos], dtype=torch.int32, device=dev)
+
+    def least(pos):  # the live K and V rows (slot <= pos) read once, q read, out written
+        return bound_ms(2 * (pos + 1) * hkv * d * 2 + 2 * 2 * hq * d, 4 * (pos + 1) * hq * d,
+                        "bf16")
+
     rows = []
     for win in (256, 1024, 2048):
-        positions = sorted({0, 255, min(256, win - 1), win // 2 + 37, win - 1})
+        mid = win // 2 + 37
+        positions = sorted({0, 7, 8, 15, 16, 255, min(256, win - 1), mid, win - 1})
         errs = {"bf16": (0.0, 0.0), "f32": (0.0, 0.0)}
         for name, q, kv, bound in (("bf16", q32.to(torch.bfloat16), caches[0], KERNEL_BOUND),
                                    ("f32", q32, caches32, F32_KERNEL_BOUND)):
             for pos in positions:
-                got = attn.gqa_decode_attention(q, *kv, pos, scale, win).float()
+                got = attn.gqa_decode_attention(q, *kv, device_pos(pos), scale, win).float()
                 want = attn.gqa_decode_attention_ref(q, *kv, pos, scale, win).float()
                 torch.cuda.synchronize()
                 what = f"gqa_decode_attention/{name}/win={win}/pos={pos}"
@@ -385,8 +449,27 @@ def decode_attn_kernel_phase(torch, dev, cfg) -> list[dict]:
                 require(err <= bound * mag, f"{what}: {err} > {bound} * {mag}")
                 errs[name] = max(errs[name], (err, mag))
         q = q32.to(torch.bfloat16)
+        # one graph, captured at `mid`, replayed at three other positions
+        pos_t = device_pos(mid)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = attn.gqa_decode_attention(q, *caches[0], pos_t, scale, win)
+        replayed = []
+        for pos in (mid, 3, 256 if win > 256 else 200, win - 1):
+            pos_t.fill_(pos)
+            graph.replay()
+            want = attn.gqa_decode_attention_ref(q, *caches[0], pos, scale, win).float()
+            err = (out.float() - want).abs().max().item()
+            require(err <= KERNEL_BOUND * want.abs().max().item(),
+                    f"gqa_decode_attention/win={win}: graph replay at pos {pos}: {err}")
+            replayed.append(pos)
+        del graph
+        times = {}
+        for label, pos in (("last", win - 1), ("mid", mid)):
+            pt = device_pos(pos)
+            kern = lambda c: attn.gqa_decode_attention(q, *c, pt, scale, win)  # noqa: E731
+            times[label] = time_ms(kern, caches, torch)
         pos = win - 1
-        kern = lambda c: attn.gqa_decode_attention(q, *c, pos, scale, win)  # noqa: E731
         plain = lambda c: attn.gqa_decode_attention_ref(q, *c, pos, scale, win)  # noqa: E731
         q4 = q.permute(1, 0, 2)[None]  # [1, Hq, 1, d]
 
@@ -397,17 +480,18 @@ def decode_attn_kernel_phase(torch, dev, cfg) -> list[dict]:
 
         lib_err = (sdpa(caches[0])[0].permute(1, 0, 2).float()
                    - plain(caches[0]).float()).abs().max().item()
-        # the live K and V rows (slot <= pos) read once, q read, out written
-        least, by = bound_ms(2 * (pos + 1) * hkv * d * 2 + 2 * 2 * hq * d,
-                             4 * (pos + 1) * hq * d, "bf16")
+        last_bound, by = least(pos)
         row = {"phase": "kernel_attn_decode", "name": "gqa_decode_attention", "hq": hq,
                "hkv": hkv, "d": d, "s": s_max, "win": win, "positions": positions,
+               "blocks_per_kv_head": attn.DECODE_CLUSTER,
                "max_abs_err": errs["bf16"][0], "max_abs_plain": errs["bf16"][1],
                "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain", "ok": True,
                "f32_max_abs_err": errs["f32"][0], "f32_max_abs_plain": errs["f32"][1],
                "f32_bound": f"max_abs_err <= {F32_KERNEL_BOUND} * max_abs_plain",
-               "timed_pos": pos, "ms": time_ms(kern, caches, torch),
-               "plain_ms": time_ms(plain, caches, torch), "bound_ms": least, "bound_by": by,
+               "graph_replay_positions": replayed,
+               "timed_pos": pos, "ms": times["last"],
+               "plain_ms": time_ms(plain, caches, torch), "bound_ms": last_bound, "bound_by": by,
+               "mid_pos": mid, "mid_ms": times["mid"], "mid_bound_ms": least(mid)[0],
                "library_ms": time_ms(sdpa, caches, torch),
                "library": "scaled_dot_product_attention(enable_gqa=True) on the [:win] views",
                "library_max_abs_diff_vs_plain": lib_err}
@@ -1173,6 +1257,95 @@ def check_alignment(res, clip_seconds: float) -> int:
     return len(items)
 
 
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def batcher_vs_engine_phase(torch, engine, audio) -> dict:
+    """The engine's greedy text (kernels 1, 2 and 4) against a
+    ContinuousBatcher's at max_batch 8 (kernel 3, the rows step) on one full
+    40 s chunk, BATCH_NEW_TOKENS new tokens (below the breaker's 16). Where
+    the tokens part, the engine's top-2 logit margin at the first differing
+    step must be within 2 bf16 ulp (a near-tie: the kernels sum in other
+    orders). Then `max_batch` 4 runs 8 rows, so every product of a batched
+    step is kernel 3 (4 x layers + 1 launches per step), and 72 is refused."""
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+    from qwen3_asr_gguf_tpu_torch.ops import q4k
+    from qwen3_asr_gguf_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    chunk = audio[: 40 * 16_000]
+    gen = engine.generator
+    saved = engine.aligner, engine.config.max_new_tokens, gen.block
+    engine.aligner, engine.config.max_new_tokens, gen.block = None, BATCH_NEW_TOKENS, BATCH_NEW_TOKENS
+    logits, inner = [], dec.lm_logits
+
+    def recording(*args, **kw):
+        out = inner(*args, **kw)
+        logits.append(torch.topk(out.float(), 2).values.tolist() + [int(out.argmax())])
+        return out
+
+    dec.lm_logits = recording
+    try:
+        res = engine.asr(chunk, context="", language="Chinese", temperature=0.0,
+                         chunk_size_sec=40.0)
+    finally:
+        dec.lm_logits = inner
+        engine.aligner, engine.config.max_new_tokens, gen.block = saved
+    engine_tokens = [row[2] for row in logits]
+
+    class Recording(ContinuousBatcher):
+        def _retire(self, row_idx):
+            self.tokens_seen = list(self.rows[row_idx].tokens)
+            super()._retire(row_idx)
+
+    cb = Recording(engine, max_batch=8, block=16, max_new_tokens=BATCH_NEW_TOKENS)
+    try:
+        got = cb.submit(chunk, language="Chinese", temperature=0.0)
+        batch_tokens = cb.tokens_seen
+    finally:
+        cb.close()
+    n = min(len(engine_tokens), len(batch_tokens), BATCH_NEW_TOKENS)
+    first = next((i for i in range(n) if engine_tokens[i] != batch_tokens[i]), None)
+    row = {"phase": "batcher_vs_engine", "audio_s": len(chunk) / 16_000,
+           "new_tokens": BATCH_NEW_TOKENS, "engine_text": res.text, "batcher_text": got.text,
+           "texts_equal": res.text == got.text, "tokens_compared": n,
+           "first_differing_step": first}
+    if first is not None:
+        top1, top2, _ = logits[first]
+        row.update(engine_top2_margin=top1 - top2, engine_top1=top1,
+                   margin_limit=2 * bf16_ulp(top1))
+    require(n > 0 and res.text and got.text, "batcher_vs_engine: no tokens")
+    require(first is not None or res.text == got.text,
+            "batcher_vs_engine: equal tokens but different texts")
+    require(first is None or row["engine_top2_margin"] <= row["margin_limit"],
+            f"batcher_vs_engine: tokens part at step {first} with a margin of "
+            f"{row.get('engine_top2_margin')} (more than 2 bf16 ulp)")
+
+    # max_batch 4: whole 8-row tiles on the card; above 64 rows refused
+    try:
+        ContinuousBatcher(engine, max_batch=72)
+        refused = False
+    except ValueError:
+        refused = True
+    cb = ContinuousBatcher(engine, max_batch=4, block=16, max_new_tokens=BATCH_NEW_TOKENS)
+    try:
+        q4k.q4k_matmul_rows.launches = 0
+        cb.submit(chunk, language="Chinese", temperature=0.0)
+        torch.cuda.synchronize()
+        launches, steps, rows = q4k.q4k_matmul_rows.launches, cb.stats["n_blocks"] * cb.block, cb.b
+    finally:
+        cb.close()
+    per_step = 4 * engine.dec_cfg.num_layers + 1
+    row.update(max_batch_4_rows=rows, max_batch_4_rows_launches_per_step=launches / max(steps, 1),
+               max_batch_72_refused=refused)
+    emit(row)
+    require(refused, "max_batch 72 was not refused")
+    require(rows == 8 and steps > 0 and launches == per_step * steps,
+            f"max_batch 4: {rows} rows, {launches} q4k_matmul_rows launches for {steps} steps")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -1295,6 +1468,7 @@ def main() -> int:
 
     for kv in (torch.bfloat16, torch.int8):
         rows_step_check(torch, engine, kv)
+    batcher_vs_engine_phase(torch, engine, audio)
     del engine
     torch.cuda.empty_cache()
 
@@ -1303,6 +1477,7 @@ def main() -> int:
     served = serve_phase(torch, dev, model_dir)
     served_int8 = serve_int8_phase(torch, dev, model_dir)
     serve_phase(torch, dev, model_dir, prec="q4_k", requests=8, long_request=False)
+    device_kernels_phase(torch, dev, cfg.text)
     # each kernel's launches from the run of its own path
     launches["q4k_matmul_rows"] = served["launches"]["q4k_matmul_rows"]
     launches["gqa_rows_q8_attention"] = served_int8["launches"]["gqa_rows_q8_attention"]

@@ -1,6 +1,8 @@
-// Shared pieces of the tensor-core kernels (q4k_matmul_rows.cu, q4_matmul.cu):
-// asynchronous global -> shared copies (cp.async) with their group
-// bookkeeping, and the warp-level mma.sync tiles both kernels use.
+// Shared pieces of the hand-written kernels: asynchronous global -> shared
+// copies (cp.async) with their group bookkeeping (q4k_matvec.cu,
+// attn_decode.cu, q4k_matmul_rows.cu, q4_matmul.cu), and the warp-level
+// mma.sync tiles of the two tensor-core kernels (q4k_matmul_rows.cu,
+// q4_matmul.cu).
 //
 // Fragment layout of mma.sync m16n8k*, with gid = lane / 4, tig = lane % 4:
 //   A (16 x K, row): a0 = row gid, a1 = row gid + 8 over the first half of
@@ -40,6 +42,12 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   else
     asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
+// Wait until at most N of the committed groups are in flight (N a constant).
+template <int N>
+__device__ __forceinline__ void cp_async_wait_n() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // d = A (16 x 32, s8) * B (32 x 8, s8) + c in every element, exact in int32.

@@ -8,8 +8,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Inline functions, and a static kernel: each source that includes this
-// header compiles its own copy.
+// Inline functions: each source that includes this header compiles its own
+// copy.
 namespace q4k {
 
 constexpr int GROUP = 32;
@@ -86,18 +86,6 @@ __device__ __forceinline__ PairScales pair_scales(const int8_t* __restrict__ sub
   p.off0 = 8.f * p.sc0 - static_cast<float>(mn.x) * mv.x;
   p.off1 = 8.f * p.sc1 - static_cast<float>(mn.y) * mv.y;
   return p;
-}
-
-// Pass A: quantize the activation row blockIdx.x (x is [rows, k]); the
-// dynamic shared memory holds k floats.
-static __global__ void quantize_rows_kernel(const void* x, int x_bf16, int k, int8_t* xq, float* sx,
-                                     float* xsum) {
-  extern __shared__ float xs[];
-  const size_t off = static_cast<size_t>(blockIdx.x) * k;
-  const size_t goff = static_cast<size_t>(blockIdx.x) * (k / GROUP);
-  for (int i = threadIdx.x; i < k; i += blockDim.x) xs[i] = load_x(x, x_bf16, off + i);
-  __syncthreads();
-  quantize_groups(xs, k, xq + off, sx + goff, xsum + goff);
 }
 
 }  // namespace q4k

@@ -327,14 +327,17 @@ def forward_step_layers(layer_list: list[Params], final_norm: torch.Tensor,
     (slot <= pos). A bf16 or f32 cache attends through `ops.attn.
     gqa_decode_attention` on the full cache: on the card it launches kernel 4
     or raises (the window must be whole 256-slot tiles); on the CPU it runs
-    its plain version. An int8 cache keeps the plain attention on a
+    its plain version. The step makes `pos` a 1-element int32 tensor on the
+    device once, for the rope and for every layer's attention (the kernel
+    reads it there). An int8 cache keeps the plain attention on a
     dequantized window. `fused_mlp`: every layer's MLP through the fused int8
     kernel (see `_mlp`). Returns (hidden [D], cache)."""
     s_max = cache["k"][0].shape[0]
     win = s_max if attn_window is None else min(attn_window, s_max)
     dev = embd.device
     scale = cfg.head_dim ** -0.5
-    cos, sin = rope_cos_sin(torch.tensor([pos], device=dev), cfg.head_dim, cfg.rope_theta)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)  # a fresh copy, not a mirror
+    cos, sin = rope_cos_sin(pos_t, cfg.head_dim, cfg.rope_theta)
     int8_kv = cache["k"][0].dtype == torch.int8
     if int8_kv:
         valid = (torch.arange(win, device=dev) <= pos)[None, :]
@@ -347,7 +350,8 @@ def forward_step_layers(layer_list: list[Params], final_norm: torch.Tensor,
             k_win, v_win = _read_cache_window(cache, l, win, k.dtype)
             attn = _gqa_attention(q, k_win, v_win, valid, scale)
         else:
-            attn = attn_ops.gqa_decode_attention(q, cache["k"][l], cache["v"][l], pos, scale, win)
+            attn = attn_ops.gqa_decode_attention(q, cache["k"][l], cache["v"][l], pos_t, scale,
+                                                  win)
         h = h + matmul(attn.reshape(1, -1), layer["o_proj"])
         h = h + _mlp(layer, h, pre_norm=(layer["mlp_norm"], eps), fused_kernel=fused_mlp)
     return rms_norm(h, final_norm, eps)[0], cache

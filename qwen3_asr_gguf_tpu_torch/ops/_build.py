@@ -40,7 +40,6 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "q4k_matvec_launch": [
         _P, _I,  # x, x_is_bf16
-        _P, _P, _P,  # xq, sx, xsum (scratch)
         _P, _P, _P, _P,  # packed, sub_t, min_t, dd_t
         _P, _I,  # out, out_is_bf16
         _I, _I,  # n, k
@@ -74,8 +73,9 @@ _SIGNATURES = {
     ],
     "gqa_decode_attention_launch": [
         _P, _P, _P, _I,  # q, k, v, kv_is_bf16
+        _P,  # pos (1-element int32 device tensor)
         _P, _I,  # out, out_is_bf16
-        _I, _I, _I, _I, _I, _I,  # hq, hkv, d, s_max, pos, win
+        _I, _I, _I, _I, _I,  # hq, hkv, d, s_max, win
         _F,  # scale
         _P,  # stream
     ],

@@ -38,6 +38,7 @@ from ._order import fma, sum_in_order
 GROUP = 32  # q4_k quant group along K
 BN = 512  # channel tile of the TPU kernel; `supported` keeps its conditions
 T_TILE = 8  # activation rows of one tensor-core tile of the multi-row matmul
+MAX_ROWS = 64  # activation rows the multi-row matmul takes at most
 ROWS_CHUNK_GROUPS = 16  # 32-groups per K chunk of the multi-row kernel (512 of K)
 ROWS_WARPS = 8  # warps of a block: channel tiles of 8 pairs times K slices
 ROWS_MIN_BLOCKS = 64  # blocks along N below which a block narrows
@@ -203,6 +204,34 @@ def q4k_matvec_ref(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], n).to(x.dtype)
 
 
+def q4k_matvec_kernel_order(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
+    """`q4k_matvec` step by step as the CUDA kernel computes it: the row
+    quantized as `quantize_act_kernel_order` does (int8s and sx as the plain
+    version's, xsum in the kernel's order), exact integer group dots, lane
+    `l` of a warp adding groups l, l + 32, ... in order with
+    acc = fma(xsum, offs, fma(dot*sx, scale, acc)), then a butterfly over
+    the 32 lanes (xor 16, 8, 4, 2, 1). Which block takes which channels
+    does not change the order. Differs from `q4k_matvec_ref` by the f32 sum order only."""
+    n, k = w.shape
+    g = k // GROUP
+    xq, sx, xsum = quantize_act_kernel_order(x.reshape(1, k).float())
+    ints = _signed_nibbles(w.packed).float().reshape(n, g, GROUP)
+    dots = torch.einsum("ngk,gk->gn", ints, xq.float().reshape(g, GROUP))  # exact
+    scale, minv = _expand_scales(w)
+    scale, offs = scale.T, (8.0 * scale - minv).T  # [G, N]
+    lanes = torch.zeros(32, n)
+    for c in range(-(-g // 32)):
+        gi = torch.arange(32) + 32 * c
+        live = gi < g
+        gl = gi[live]
+        acc = fma(dots[gl] * sx[0, gl, None], scale[gl], lanes[live])
+        lanes[live] = fma(xsum[0, gl, None], offs[gl], acc)
+    idx = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[idx ^ o]
+    return lanes[0].reshape(*x.shape[:-1], n).to(x.dtype)
+
+
 def _matmul_rows_f32(xf: torch.Tensor, w: Q4KWeight, chunk: int = 16384) -> torch.Tensor:
     """f32 [T, K] rows -> f32 [T, N]: each row exactly as `_matvec_f32`,
     in channel chunks to bound the f32 unpack of the weight."""
@@ -253,8 +282,8 @@ def rows_tiling(n: int, k: int) -> tuple[int, int]:
 
 def quantize_act_kernel_order(xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`quantize_act_ref` with the group sum taken as pass A of the multi-row
-    kernel takes it: eight lanes of four values, ((v0+v1)+v2)+v3 in each, then
-    three butterfly steps."""
+    kernel and the matvec kernel's prologue take it: eight lanes of four
+    values, ((v0+v1)+v2)+v3 in each, then three butterfly steps."""
     xq, sx, _ = quantize_act_ref(xf)
     lanes = xf.reshape(-1, 8, 4)
     s = ((lanes[..., 0] + lanes[..., 1]) + lanes[..., 2]) + lanes[..., 3]  # [groups, 8]
@@ -316,13 +345,13 @@ def supported(x_shape: tuple[int, ...], w: Q4KWeight) -> bool:
 
 
 def supported_rows(x_shape: tuple[int, ...], w: Q4KWeight) -> bool:
-    """Multi-row matmul: 2-D [T, K] with T a T_TILE multiple up to 64
+    """Multi-row matmul: 2-D [T, K] with T a T_TILE multiple up to MAX_ROWS
     (pallas_q4k.supported_rows)."""
     if len(x_shape) != 2:
         return False
     t = x_shape[0]
     n, k = w.shape
-    return (t > 1 and t % T_TILE == 0 and t <= 64 and pick_subk(k) is not None
+    return (t > 1 and t % T_TILE == 0 and t <= MAX_ROWS and pick_subk(k) is not None
             and n % BN == 0 and w.packed.ndim == 2)
 
 
@@ -363,18 +392,20 @@ def _scratch(x: torch.Tensor, k: int):
 
 
 def q4k_matvec(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
-    """x [..., K] (one row) @ dequant(w).T -> [..., N] in x's dtype."""
+    """x [..., K] (one row) @ dequant(w).T -> [..., N] in x's dtype: one
+    launch that quantizes the row in every block's prologue; no scratch."""
     if not x.is_cuda:
         return q4k_matvec_ref(x, w)
     _check_cuda_args(x, w, "q4k_matvec")
+    if any(p.data_ptr() % 16 for p in (x, w.sub_t, w.min_t, w.dd_t)):
+        raise ValueError("q4k_matvec: x and the scale planes must be 16-byte aligned")
     n, k = w.shape
-    xq, sx, xsum = _scratch(x, k)
     out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _build.lib().q4k_matvec_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), xq.data_ptr(), sx.data_ptr(),
-        xsum.data_ptr(), w.packed.data_ptr(), w.sub_t.data_ptr(), w.min_t.data_ptr(),
-        w.dd_t.data_ptr(), out.data_ptr(), int(out.dtype == torch.bfloat16), n, k, stream,
+        x.data_ptr(), int(x.dtype == torch.bfloat16), w.packed.data_ptr(), w.sub_t.data_ptr(),
+        w.min_t.data_ptr(), w.dd_t.data_ptr(), out.data_ptr(), int(out.dtype == torch.bfloat16),
+        n, k, stream,
     )
     _build.check(rc, "q4k_matvec")
     _build.count_launch(q4k_matvec)

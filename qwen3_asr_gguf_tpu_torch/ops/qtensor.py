@@ -183,6 +183,25 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
     return dense_matmul(x, w)
 
 
+def kernel_rows(w, rows: int) -> int:
+    """Activation rows at which a product of `w` with `rows` rows runs on
+    the card's kernel: a `Q4KWeight` takes whole `q4k.T_TILE`-row tiles up
+    to `q4k.MAX_ROWS` (`q4k.supported_rows`), so `rows` rounds up to a
+    tile; a `Q4Weight` takes at most `qmm.MAX_ROWS`. Raises ValueError
+    above the limit, where `matmul` would dequantize the weight per call.
+    Other weights take any count."""
+    if isinstance(w, q4k.Q4KWeight):
+        limit, t = q4k.MAX_ROWS, -(-rows // q4k.T_TILE) * q4k.T_TILE
+    elif isinstance(w, Q4Weight):
+        limit, t = qmm.MAX_ROWS, rows
+    else:
+        return rows
+    if t > limit:
+        raise ValueError(f"{rows} rows exceed {limit}, the most rows the "
+                         f"{type(w).__name__} kernel takes")
+    return t
+
+
 def matmul_normed(x: torch.Tensor, w, norm_w: torch.Tensor, eps: float) -> torch.Tensor:
     """rms_norm(x, norm_w, eps) @ w.T, with the norm fused into the q4_k
     matvec kernel where it applies; otherwise norm then `matmul`."""

@@ -1,10 +1,11 @@
 """Continuous batching: per-request admission into free rows of a persistent
 batched decode loop (counterpart of `qwen3_asr_gguf_tpu/runtime/continuous.py`).
 
-A decode worker thread keeps `max_batch` KV-cache rows and runs blocks of
-`forward_step_rows` over all of them: one token per row per step, every
-quantized weight streamed once per step for all rows (the q4_k multi-row
-kernel at a batch of 8 to 64, a multiple of 8), per-row temperature and
+A decode worker thread serves up to `max_batch` requests in KV-cache rows
+and runs blocks of `forward_step_rows` over all rows: one token per row per
+step, every quantized weight streamed once per step for all rows (the q4_k
+multi-row kernel at a batch of 8 to 64, a multiple of 8: on the card the
+row count rounds up to it, see `batch_rows`), per-row temperature and
 greedy sampling, EOS latches kept on the device, and ONE device-to-host
 fetch per block. An admission thread takes queued requests in cohorts of
 up to 16: it encodes same-shape chunks as one batch, builds each prompt,
@@ -34,11 +35,25 @@ import numpy as np
 import torch
 
 from ..models import decoder as dec
+from ..ops.qtensor import kernel_rows
 from ..ops.sampling import sample_rows
 from ..schema import TranscribeResult
 from .generate import prompt_bucket, round_up
 
 SAMPLE_RATE = 16_000
+
+
+def batch_rows(max_batch: int, weights: list, on_cuda: bool) -> int:
+    """Rows of the batched decode step that serves `max_batch` requests: on
+    the card the most that any decode weight's kernel asks for
+    (`qtensor.kernel_rows`: a q4_k decoder rounds up to whole 8-row tiles,
+    the extra rows idling at slot 0 as free rows do, and a q4_k or planar
+    int4 decoder raises above 64 rows); on the CPU `max_batch`."""
+    if max_batch < 1:
+        raise ValueError(f"max_batch must be at least 1, got {max_batch}")
+    if not on_cuda:
+        return max_batch
+    return max(kernel_rows(w, max_batch) for w in weights)
 
 
 @dataclass
@@ -101,7 +116,10 @@ class ContinuousBatcher:
         self.params = gen.prefill_params
         self.dec_params = gen.params
         self.n_ctx = engine.config.n_ctx
-        self.b = max_batch
+        self.max_batch = max_batch  # rows that take requests
+        # rows of the batched step: rows past max_batch stay free and idle
+        self.b = batch_rows(max_batch, [*gen.params["layers"][0].values(), gen.params["lm_head"]],
+                            self.device.type == "cuda")
         self.block = block
         self.max_new_tokens = max_new_tokens or engine.config.max_new_tokens
         self.eos = frozenset(int(e) for e in engine.thinker.eos_token_ids)
@@ -127,7 +145,7 @@ class ContinuousBatcher:
         self._rng_admit = torch.Generator(device=self.device)  # admission thread's own
         self._rng_admit.manual_seed(seed + 1)
         # host mirrors
-        self.rows = [_Row() for _ in range(self.b)]
+        self.rows = [_Row() for _ in range(max_batch)]
         self.poss = np.zeros(self.b, np.int64)
         self.temps = np.full(self.b, 1e-6, np.float32)
         self.greedy = np.ones(self.b, bool)
@@ -166,7 +184,8 @@ class ContinuousBatcher:
 
     @property
     def supports_timestamps(self) -> bool:
-        """False until the forced aligner is ported (ROADMAP Queue 1)."""
+        """False until the align pool is ported (ROADMAP Queue 1, item 4; the
+        forced aligner itself is)."""
         return False
 
     def submit(self, audio: np.ndarray, *, context: str = "", language: Optional[str] = None,
@@ -520,9 +539,9 @@ class ContinuousBatcher:
             # as with all of them, so while admissions are in flight and rows
             # are free, let staging land (capped at FILL_GATE_S); a lone
             # request with nothing queued behind it never waits here
-            if len(active) < self.b:
+            if len(active) < self.max_batch:
                 t_gate = time.time()
-                while len(active) < self.b and time.time() - t_gate < self.FILL_GATE_S:
+                while len(active) < self.max_batch and time.time() - t_gate < self.FILL_GATE_S:
                     with self._lock:
                         inflow = bool(self._pending or self._ready) or self._n_staging > 0
                     if not inflow:
@@ -534,8 +553,8 @@ class ContinuousBatcher:
             # attention window: the deepest active row, in 256-slot buckets
             win = min(self.s_cache, round_up(int(max(self.poss[i] for i in active)) + self.block,
                                              256))
-            # idle rows still run (the batch is always max_batch wide); they
-            # sit at slot 0, a valid slot that the next admission overwrites
+            # idle rows still run (the batch is always self.b wide); they sit
+            # at slot 0, a valid slot that the next admission overwrites
             poss = np.zeros(self.b, np.int64)
             poss[active] = self.poss[active]
             t0 = time.time()

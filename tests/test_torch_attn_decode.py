@@ -224,3 +224,134 @@ def test_generator_windows_are_whole_tiles_at_any_n_ctx(n_ctx, slots, monkeypatc
     assert toks == [] and finished  # pos + block > n_ctx: the context is full
     assert len(wins) == 16 * cfg.num_layers
     assert all(w % 256 == 0 and 0 < w <= slots for w in wins)
+
+
+# -- `pos` on the device and the kernel's split (the Hopper design) --------------
+
+# slot 0, a sub-tile edge (8 slots), a block edge (16 slots at win 256), a
+# 256-slot tile edge, mid-window and win - 1
+EDGE_POSITIONS = (0, 7, 8, 15, 16, 255, 256)
+
+
+def _inputs_g(seed: int, dtype: str, s: int, hq: int, hkv: int, d: int):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((1, hq, d)) * 0.5).astype(np.float32)
+    k, v = (rng.standard_normal((s, hkv, d)).astype(np.float32) for _ in "kv")
+    if dtype == "bf16":
+        q, k, v = (_bf16(a).float().numpy() for a in (q, k, v))
+    return q, k, v
+
+
+def _pos_t(pos: int) -> torch.Tensor:
+    return torch.tensor([pos], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("win", [256, 1024, 2048])
+def test_plain_version_takes_pos_as_a_device_tensor(dtype, win):
+    """The plain version (and the CPU wrapper) with `pos` as a 1-element
+    int32 tensor equals the int form bit for bit, at every position class."""
+    q, k, v = (_torch(a, dtype) for a in _inputs_g(win, dtype, 2048, 16, 8, 128))
+    for pos in sorted({*EDGE_POSITIONS, win // 2 + 37, win - 1}):
+        want = tattn.gqa_decode_attention_ref(q, k, v, pos, SCALE, win)
+        assert torch.equal(tattn.gqa_decode_attention_ref(q, k, v, _pos_t(pos), SCALE, win), want)
+        assert torch.equal(tattn.gqa_decode_attention(q, k, v, _pos_t(pos), SCALE, win), want)
+
+
+@pytest.mark.parametrize("win,hkv", [(256, 8), (1024, 8), (2048, 8), (256, 2), (512, 1),
+                                     (256, 9)])
+def test_decode_cluster_depends_on_window_and_heads(win, hkv):
+    """The grid (`DECODE_CLUSTER` blocks per each of the Hkv kv heads) is a
+    function of the window and the heads alone: the portable cluster of 8,
+    so at least 64 blocks work at the 1.7B shape (Hkv 8) on any window;
+    every block owns whole 8-slot sub-tiles."""
+    n = tattn.DECODE_CLUSTER
+    assert n == 8 and n * 8 >= 64
+    assert (win // n) % tattn.DECODE_SUB == 0 and (win // n) * n == win
+
+
+# (dtype, win, g, d): every group size and both head dims, bf16 and f32
+KERNEL_ORDER_CASES = [
+    ("f32", 256, 2, 128), ("bf16", 256, 2, 128), ("f32", 1024, 1, 64), ("bf16", 1024, 4, 64),
+    ("f32", 2048, 8, 128), ("bf16", 2048, 2, 128), ("f32", 512, 4, 128), ("bf16", 512, 8, 64),
+]
+
+
+@pytest.mark.parametrize("dtype,win,g,d", KERNEL_ORDER_CASES)
+def test_kernel_order_vs_plain_version(dtype, win, g, d):
+    """`gqa_decode_attention_kernel_order` (the kernel's split into blocks
+    and warps, per-warp online softmax, ordered merges) against the plain
+    version at windows 256-2048, `pos` at 0, sub-tile and block edges,
+    mid-window and win - 1: f32 within 1e-5 of max|plain| (sums in another
+    order), bf16 within 1e-2 (the probabilities rounded per sub-tile)."""
+    hkv = 2
+    q, k, v = (_torch(a, dtype) for a in _inputs_g(win + g + d, dtype, win, g * hkv, hkv, d))
+    bound = 1e-5 if dtype == "f32" else 1e-2
+    for pos in sorted({*EDGE_POSITIONS, win // 2 + 37, win - 1} - {p for p in EDGE_POSITIONS
+                                                                    if p >= win}):
+        want = tattn.gqa_decode_attention_ref(q, k, v, pos, D ** -0.5, win).float()
+        got = tattn.gqa_decode_attention_kernel_order(q, k, v, _pos_t(pos), D ** -0.5,
+                                                      win).float()
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert (got - want).abs().max() <= bound * want.abs().max(), pos
+
+
+@pytest.mark.parametrize("dtype,win,pos", [("f32", 256, 0), ("f32", 1024, 300),
+                                           ("bf16", 512, 16), ("bf16", 2048, 2047)])
+def test_kernel_order_vs_jax_kernel(dtype, win, pos):
+    """The kernel-order plain version against the JAX package's kernel in
+    interpret mode (its grid walks 256-slot tiles; the port splits the
+    window over a cluster of blocks and warps)."""
+    hq, hkv, d = 8, 2, 64
+    q, k, v = _inputs_g(pos + win, dtype, win, hq, hkv, d)
+    got = tattn.gqa_decode_attention_kernel_order(
+        *(_torch(a, dtype) for a in (q, k, v)), _pos_t(pos), d ** -0.5, win)
+    want = jattn.gqa_decode_attention(_jax(q, dtype), _jax(k, dtype), _jax(v, dtype),
+                                      jnp.int32(pos), d ** -0.5, win)
+    _assert_close(got.float().numpy(), want, dtype)
+
+
+@pytest.mark.parametrize("bad", [
+    {"dtype": torch.int64}, {"shape": (2,)}, {"shape": ()}, {"shape": (1, 1)},
+    {"device": "meta"}, {"dtype": torch.float32},
+])
+def test_cuda_argument_check_refuses_a_bad_pos_tensor(bad):
+    """`pos` as a tensor must be one int32 value on q's device."""
+    q = torch.zeros((1, 16, 128), dtype=torch.bfloat16)
+    k = torch.zeros((512, 8, 128), dtype=torch.bfloat16)
+    pos = torch.zeros(bad.get("shape", (1,)), dtype=bad.get("dtype", torch.int32),
+                      device=bad.get("device", "cpu"))
+    with pytest.raises(ValueError, match="pos"):
+        tattn._check_decode_args(q, k, k, pos, 256)
+    tattn._check_decode_args(q, k, k, _pos_t(5), 256)  # the right form passes
+
+
+def test_decode_step_passes_one_pos_tensor_to_every_layer(monkeypatch):
+    """The single-stream step makes `pos` a 1-element int32 tensor once and
+    hands the same tensor to every layer's attention (what a captured graph
+    of the step replays), and its result equals the step with int `pos`
+    handed to the plain version."""
+    cfg = TINY
+    tp = tP.fuse_layer_weights(tP.from_jax_params(_numpy_params(cfg, 0)))
+    seen = []
+    inner = tattn.gqa_decode_attention
+
+    def spy(q, k_full, v_full, pos, scale, w):
+        seen.append(pos)
+        return inner(q, k_full, v_full, pos, scale, w)
+
+    e = torch.from_numpy(np.random.default_rng(3).standard_normal(cfg.hidden_size)
+                         .astype(np.float32))
+    twin = tdec.init_cache(cfg, 512, torch.float32)
+    monkeypatch.setattr(tattn, "gqa_decode_attention", spy)
+    h, _ = tdec.forward_step_layers(tp["layers"], tp["final_norm"], cfg, e,
+                                    tdec.init_cache(cfg, 512, torch.float32), 300,
+                                    attn_window=512)
+    assert len(seen) == cfg.num_layers and all(p is seen[0] for p in seen)
+    assert seen[0].dtype == torch.int32 and tuple(seen[0].shape) == (1,) and int(seen[0]) == 300
+    monkeypatch.setattr(tattn, "gqa_decode_attention",
+                        lambda q, k, v, pos, s, w: tattn.gqa_decode_attention_ref(
+                            q, k, v, int(pos), s, w))
+    want, _ = tdec.forward_step_layers(tp["layers"], tp["final_norm"], cfg, e, twin, 300,
+                                       attn_window=512)
+    assert torch.equal(h, want)

@@ -15,6 +15,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import qwen3_asr_gguf_tpu.models.configs as C
 import qwen3_asr_gguf_tpu_torch.models.configs as TC
@@ -23,7 +24,8 @@ from qwen3_asr_gguf_tpu_torch import QwenASREngine
 from qwen3_asr_gguf_tpu_torch.export.synthetic import make_synthetic_checkpoint
 from qwen3_asr_gguf_tpu_torch.models import decoder as dec
 from qwen3_asr_gguf_tpu_torch.ops import q4k
-from qwen3_asr_gguf_tpu_torch.runtime.continuous import ContinuousBatcher
+from qwen3_asr_gguf_tpu_torch.ops import qtensor as tq
+from qwen3_asr_gguf_tpu_torch.runtime.continuous import ContinuousBatcher, batch_rows
 
 from test_torch_engine import KERNEL_PRESET, _audio, _config
 
@@ -70,6 +72,7 @@ def test_concurrent_requests_into_fewer_rows(tiny):
     """5 concurrent requests into 4 rows: one admission waits for a row."""
     _, port, jax_engine = tiny
     cb = ContinuousBatcher(port, max_batch=4, block=4)
+    assert cb.b == 4 and len(cb.rows) == 4  # on the CPU the row count stays max_batch
     try:
         audios = [_audio(1.5, f) for f in (330.0, 440.0, 550.0, 660.0, 770.0)]
         results = _submit_all(cb, [(a, {"language": "English"}) for a in audios])
@@ -210,3 +213,44 @@ def test_int4_batcher_takes_the_rows_route(kernel_engine, monkeypatch):
         seq = kernel_engine.asr(audio, context="", language="English", chunk_size_sec=2.0,
                                 temperature=0.0)
         assert res.text == seq.text
+
+
+def _weights_of(kind: str) -> list:
+    """One weight of each decoder container, as the batcher inspects them."""
+    if kind == "q4k":
+        return [q4k.Q4KWeight(*(torch.zeros(1, dtype=dt) for dt in
+                                (torch.uint8, torch.int8, torch.int8, torch.float32))),
+                torch.ones(4)]
+    if kind == "q4":
+        return [tq.Q4Weight(torch.zeros(1, dtype=torch.uint8), torch.zeros(1), torch.zeros(1))]
+    if kind == "int8":
+        return [tq.Int8Weight(q=torch.zeros(1, dtype=torch.int8), scale=torch.zeros(1))]
+    return [torch.zeros(2, 2)]
+
+
+@pytest.mark.parametrize("kind,max_batch,rows", [
+    ("q4k", 1, 8), ("q4k", 4, 8), ("q4k", 8, 8), ("q4k", 12, 16), ("q4k", 63, 64),
+    ("q4k", 64, 64), ("q4", 4, 4), ("q4", 64, 64), ("int8", 4, 4), ("int8", 72, 72),
+    ("dense", 3, 3), ("dense", 100, 100),
+])
+def test_batch_rows_rounds_to_the_kernels_tiles_on_the_card(kind, max_batch, rows):
+    """On the card a q4_k decoder's batch rounds up to whole 8-row tiles of
+    the multi-row kernel; other containers keep `max_batch`; on the CPU
+    every container keeps it."""
+    assert batch_rows(max_batch, _weights_of(kind), on_cuda=True) == rows
+    assert batch_rows(max_batch, _weights_of(kind), on_cuda=False) == max_batch
+
+
+@pytest.mark.parametrize("kind", ["q4k", "q4"])
+@pytest.mark.parametrize("max_batch", [65, 72, 128])
+def test_batch_rows_refuses_more_rows_than_the_kernels_take(kind, max_batch):
+    """Above 64 rows a multi-row kernel would not take the product: on the
+    card the batcher refuses at construction and names the limit; the CPU
+    runs the plain versions at any count."""
+    limit = q4k.MAX_ROWS if kind == "q4k" else tq.qmm.MAX_ROWS
+    assert limit == 64
+    with pytest.raises(ValueError, match=str(limit)):
+        batch_rows(max_batch, _weights_of(kind), on_cuda=True)
+    assert batch_rows(max_batch, _weights_of(kind), on_cuda=False) == max_batch
+    with pytest.raises(ValueError):
+        batch_rows(0, _weights_of(kind), on_cuda=False)

@@ -15,7 +15,11 @@ its kernel-order plain version repeats those sums, and the kernel is held to
 it at 1e-5.
 The decode attention: 1e-2 * max|plain| over a bf16 cache (bf16 rounding of
 the probabilities and the output), 1e-4 * max|plain| over an f32 cache (the
-online softmax's f32 sums in another order).
+online softmax's f32 sums in another order); against its kernel-order plain
+version, which repeats its split and merges, 1e-5 over an f32 cache (the q.k
+dots summed in another order). The one-launch matvec against its
+kernel-order plain version: 1e-5 on f32 outputs (an fma's double rounding
+at most).
 The fused int4 dequant + matmul (`q4_matmul`): the group factored, x in bf16
 planes on the tensor cores (an f32 x as hi + lo, dropping 2^-17 of x) and f32
 sums in another order: 1e-4 * max|plain| on f32 outputs, 1e-2 on bf16 ones.
@@ -550,3 +554,163 @@ def test_int8_dot_on_the_card_equals_the_f64_route(cuda, t, n, k):
     assert got.shape == (t, n) and got.dtype == torch.float32
     assert torch.equal(got, want)
     assert torch.equal(tq.int8_dot(xq[0], wq), want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,d", [(16, 8, 128), (8, 1, 64), (16, 2, 128), (4, 4, 128)])
+def test_decode_attention_vs_kernel_order(cuda, hq, hkv, d):
+    """Over an f32 cache the kernel equals the plain version that repeats its
+    split (blocks, warps, 8-slot sub-tiles) and its ordered merges to 1e-5,
+    with `pos` as a device tensor at sub-tile and block edges, mid-window and
+    win - 1; the int form of `pos` gives the same bits."""
+    s = 2048
+    g = torch.Generator().manual_seed(hq * d + hkv)
+    k = torch.randn(s, hkv, d, generator=g).to(cuda)
+    v = torch.randn(s, hkv, d, generator=g).to(cuda)
+    q = (torch.randn(1, hq, d, generator=g) * 0.5).to(cuda)
+    for win in (256, 1024, 2048):
+        for pos in sorted({0, 7, 8, 15, 16, 255, 256, win // 2 + 37, win - 1}):
+            pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
+            got = attn.gqa_decode_attention(q, k, v, pos_t, d ** -0.5, win)
+            assert torch.equal(got, attn.gqa_decode_attention(q, k, v, pos, d ** -0.5, win))
+            want = attn.gqa_decode_attention_kernel_order(q.cpu(), k.cpu(), v.cpu(), pos,
+                                                          d ** -0.5, win)
+            assert _rel_err(got.cpu(), want) <= 1e-5, (win, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype,bound", [(torch.bfloat16, 1e-2), (torch.float32, 1e-4)])
+def test_decode_attention_graph_replays_at_other_positions(cuda, kv_dtype, bound):
+    """One CUDA graph of kernel 4, captured once inside a window, replayed
+    after the device `pos` is written to three other positions of that
+    window: each replay equals the plain version at its position (the grid
+    depends on the window alone; the kernel reads `pos` on the device)."""
+    s, hq, hkv, d, win = 2048, 16, 8, 128, 1024
+    g = torch.Generator().manual_seed(21)
+    k = torch.randn(s, hkv, d, generator=g).to(cuda, kv_dtype)
+    v = torch.randn(s, hkv, d, generator=g).to(cuda, kv_dtype)
+    q = (torch.randn(1, hq, d, generator=g) * 0.5).to(cuda, kv_dtype)
+    pos_t = torch.tensor([700], dtype=torch.int32, device=cuda)
+    attn.gqa_decode_attention(q, k, v, pos_t, d ** -0.5, win)  # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = attn.gqa_decode_attention.launches
+    with torch.cuda.graph(graph):
+        out = attn.gqa_decode_attention(q, k, v, pos_t, d ** -0.5, win)
+    assert attn.gqa_decode_attention.launches == before + 1  # the capture
+    for pos in (700, 3, 256, win - 1):
+        pos_t.fill_(pos)  # on the stream the graph replays on: ordered before it
+        graph.replay()
+        want = attn.gqa_decode_attention_ref(q, k, v, pos, d ** -0.5, win)
+        assert _rel_err(out, want) <= bound, pos
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_a_bad_pos_tensor(cuda):
+    k = torch.zeros(512, 8, 128, device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(1, 16, 128, device=cuda, dtype=torch.bfloat16)
+    before = attn.gqa_decode_attention.launches
+    for pos in (torch.tensor([3], device=cuda), torch.tensor([3], dtype=torch.int32),
+                torch.tensor([3, 4], dtype=torch.int32, device=cuda)):
+        with pytest.raises(ValueError):
+            attn.gqa_decode_attention(q, k, k, pos, 0.1, 256)
+    assert attn.gqa_decode_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_matvec_is_one_device_launch(cuda):
+    """q4k_matvec is one kernel on the device per call (the quantization is
+    in its prologue), and allocates nothing but its output."""
+    from torch.profiler import ProfilerActivity, profile
+
+    w = _weight(2048, 6144, 3, cuda)
+    x = _x(6144, torch.bfloat16, cuda)
+    q4k.q4k_matvec(x, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        q4k.q4k_matvec(x, w)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "q4k_matvec_one_kernel" in kernels[0], kernels
+    allocs = [e.name for e in prof.events() if e.name in ("aten::empty", "aten::empty_strided")]
+    assert len(allocs) == 1, allocs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(2048, 2048), (2048, 6144), (152576, 2048), (1024, 512),
+                                 (4096, 12288)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matvec_vs_kernel_order(cuda, n, k, dtype):
+    """The one-launch matvec against the plain version that repeats its
+    quantization and sums (1e-5 of max on f32 outputs; one bf16 rounding),
+    with one tile per block (the layer shapes) and several (the LM head,
+    K = 12288)."""
+    w = _weight(n, k, n + k + 1, cuda)
+    x = _x(k, dtype, cuda, seed=4)
+    got = q4k.q4k_matvec(x, w)
+    want = q4k.q4k_matvec_kernel_order(x.cpu(), w.to("cpu"))
+    assert _rel_err(got.cpu(), want) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 1e-2), (torch.float32, 1e-4)])
+def test_matvec_zero_row_and_large_row(cuda, dtype, bound):
+    """A row of zeros (sx takes its 1e-10 floor, every int8 is 0: the output
+    is exactly 0) and a row of +-1e4 (every value at the +-127 clip)."""
+    n, k = 2048, 2048
+    w = _weight(n, k, 78, cuda)
+    zero = torch.zeros(1, k, device=cuda, dtype=dtype)
+    got = q4k.q4k_matvec(zero, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))
+    x = torch.randn(1, k, generator=torch.Generator().manual_seed(6))
+    large = torch.where(x > 0, 1e4, -1e4).to(cuda, dtype)
+    got = q4k.q4k_matvec(large, w)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, q4k.q4k_matvec_ref(large, w)) <= bound
+
+
+def _kernel_engine_28(tmp_path, device):
+    """An int4 engine of 28 kernel-shaped layers (the 1.7B decoder's depth:
+    4 x 28 + 1 = 113 q4_k products per step) on a synthetic checkpoint."""
+    from qwen3_asr_gguf_tpu_torch import ASREngineConfig, QwenASREngine
+    from qwen3_asr_gguf_tpu_torch.export.synthetic import make_synthetic_checkpoint
+    from qwen3_asr_gguf_tpu_torch.models import configs as TC
+
+    TC.PRESETS.setdefault("kernel-512-28", TC.ThinkerConfig(
+        audio=TC.AudioEncoderConfig(num_mel_bins=128, d_model=64, encoder_layers=1,
+                                    encoder_attention_heads=4, encoder_ffn_dim=128,
+                                    downsample_hidden_size=32, output_dim=512),
+        text=TC.TextDecoderConfig(vocab_size=512, hidden_size=512, num_layers=28, num_heads=4,
+                                  num_kv_heads=2, head_dim=128, intermediate_size=1024)))
+    make_synthetic_checkpoint(str(tmp_path), "kernel-512-28", quant="q4_k", seed=0)
+    return QwenASREngine(ASREngineConfig(
+        model_dir=str(tmp_path), llm_fn="qwen3_asr_llm.q4_k.gguf", precision="int4",
+        chunk_size=2.0, n_ctx=512, verbose=False, max_new_tokens=12, decode_block=4),
+        device=device)
+
+
+@pytest.mark.cuda
+def test_batcher_rounds_its_rows_to_the_rows_kernel(cuda, tmp_path):
+    """`--max-batch 4` on the card: the batcher runs 8 rows, so every product
+    of a batched step is the multi-row kernel (113 launches per step at 28
+    layers), and it refuses more than 64 rows at construction."""
+    from qwen3_asr_gguf_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    engine = _kernel_engine_28(tmp_path, cuda)
+    with pytest.raises(ValueError, match="64"):
+        ContinuousBatcher(engine, max_batch=72)
+    cb = ContinuousBatcher(engine, max_batch=4, block=4)
+    try:
+        assert cb.b == 8 and len(cb.rows) == 4
+        t = np.arange(24_000) / 16_000
+        audio = (np.sin(2 * np.pi * 440 * t) * 0.3).astype(np.float32)
+        before = q4k.q4k_matmul_rows.launches
+        res = cb.submit(audio, language="English")
+        torch.cuda.synchronize()
+        launches = q4k.q4k_matmul_rows.launches - before
+        steps = cb.stats["n_blocks"] * cb.block
+    finally:
+        cb.close()
+    assert isinstance(res.text, str) and steps > 0
+    assert launches == 113 * steps

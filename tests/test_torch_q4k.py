@@ -172,3 +172,76 @@ def test_matmul_dispatch_dense_fallback_matches_jax():
     want = np.asarray(jq.matmul(jnp.asarray(x), _jax_w(p)))
     got = qtensor.matmul(torch.from_numpy(x), _torch_w(p)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
+
+
+# -- the one-launch matvec (the Hopper design) ------------------------------------
+
+
+def _lane_order_xsum(x: np.ndarray) -> np.ndarray:
+    """The prologue's group sums, written out with numpy f32 scalars: eight
+    lanes of four values, ((v0+v1)+v2)+v3 in each, then butterflies over the
+    lanes at distance 1, 2 and 4."""
+    out = []
+    for grp in x.astype(np.float32).reshape(-1, 32):
+        lanes = [((grp[4 * i] + grp[4 * i + 1]) + grp[4 * i + 2]) + grp[4 * i + 3]
+                 for i in range(8)]
+        for o in (1, 2, 4):
+            lanes = [np.float32(lanes[i] + lanes[i ^ o]) for i in range(8)]
+        out.append(lanes[0])
+    return np.array(out, np.float32)
+
+
+def _special_row(kind: str, k: int) -> np.ndarray:
+    rng = np.random.default_rng(len(kind) + k)
+    x = (rng.standard_normal(k) * rng.uniform(0.01, 3.0, k)).astype(np.float32)
+    if kind == "zeros":
+        x[: k // 2] = 0.0  # whole groups of zeros take the 1e-10 floor
+    elif kind == "large":
+        x = np.where(x > 0, 1e4, -1e4).astype(np.float32)  # every value at the +-127 clip
+        x[5::7] *= 0.5
+    elif kind == "halves":
+        # group g: amax 12.7 so 1/sx is ~10, and values k + 0.05 land on .5 ties
+        x = np.tile(np.arange(32, dtype=np.float32) * 0.05 + 0.05, k // 32)
+        x[::32] = 12.7
+        x[1::32] = -12.7
+    return x
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros", "large", "halves"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prologue_quantization_bit_equal_to_pass_a(kind, dtype):
+    """The matvec kernel's prologue quantization (mirrored by
+    `quantize_act_kernel_order`): its int8s and sx bit-equal to pass A's
+    plain version (`quantize_act_ref`) and to the TPU kernel's, and xsum
+    bit-equal to the lane-order sums written out in numpy."""
+    k = 2048
+    x = torch.from_numpy(_special_row(kind, k)).to(dtype).float()
+    got_q, got_sx, got_sum = q4k.quantize_act_kernel_order(x.reshape(1, k))
+    ref_q, ref_sx, _ = q4k.quantize_act_ref(x.reshape(1, k))
+    assert torch.equal(got_q, ref_q) and torch.equal(got_sx, ref_sx)
+    want_q, want_sx, _ = _jax_act_quant(x.numpy())
+    np.testing.assert_array_equal(got_q.numpy()[0], want_q)
+    np.testing.assert_array_equal(got_sx.numpy()[0], want_sx)
+    np.testing.assert_array_equal(got_sum.numpy()[0], _lane_order_xsum(x.numpy()))
+
+
+@pytest.mark.parametrize("n,k", [(512, 2048), (512, 6144), (1024, 2048), (512, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matvec_kernel_order_vs_plain_and_jax(n, k, dtype):
+    """`q4k_matvec_kernel_order` (lanes over groups, a butterfly over the
+    lanes) at o_proj-, down_proj- and head-like K against the plain version
+    and the JAX kernel in interpret mode: the same exact group dots and
+    scales, f32 sums in another order (f32: 1e-5 of max; bf16 output: one
+    rounding, 1e-2 of max). K = 512 leaves half the lanes without a group."""
+    p = _packed(n, k, seed=n + k)
+    x = torch.from_numpy((np.random.default_rng(k).standard_normal((1, k)) * 0.1)
+                         .astype(np.float32)).to(dtype)
+    got = q4k.q4k_matvec_kernel_order(x, _torch_w(p))
+    assert got.shape == (1, n) and got.dtype == dtype
+    bound = 1e-5 if dtype == torch.float32 else 1e-2
+    want = q4k.q4k_matvec_ref(x, _torch_w(p)).float()
+    assert (got.float() - want).abs().max() <= bound * want.abs().max()
+    jx = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                               else jnp.float32)
+    jwant = np.asarray(pq.q4k_matvec(jx, _jax_w(p)), np.float32)
+    assert np.abs(got.float().numpy() - jwant).max() <= bound * np.abs(jwant).max()
