@@ -14,7 +14,9 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    (CUDA events, median of 50 launches, L2 flushed before each), beside one
    torch.matmul on the dequantized bf16 weight and the least time the card
    could take (bytes over its memory rate, operations over its peak rate);
-   the single-token decode attention the same way over a 2048-slot bf16
+   the fused-norm matvec also bit-equal to q4k_matvec on the normed row its
+   prologue builds, and on an f32 row within 1e-5 of its kernel-order plain
+   version; the single-token decode attention the same way over a 2048-slot bf16
    cache (windows 256, 1024, 2048; an f32 cache too; `pos` a device tensor,
    timed at win - 1 and mid-window; one CUDA graph of it replayed at three
    other positions), beside one scaled_dot_product_attention call;
@@ -36,7 +38,9 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    against the matvec kernel, at T = 8 (the serving batch) and T = 64, and at
    T = 16 and 32 at o_proj and the LM head, and the int8-KV rows attention
    against its plain version at B = 8 over a 2048-slot cache, windows 256,
-   1024 and 2048; both timed as in phase 3;
+   1024 and 2048, at spread and mid-window row positions (`poss` on the
+   card; an f32 q within 1e-5 of the kernel-order plain version; one CUDA
+   graph replayed at three other row sets); both timed as in phase 3;
 8. one batched decode step (forward_step_rows, B = 8) through the kernels
    against the same step on dense weights with the plain attention, from
    the same prefilled caches, for bf16 and int8 KV (cosine bound); then the
@@ -70,8 +74,9 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    requests over HTTP: q4_matmul at 8 rows on every product of the batched
    step;
 16. the kernels that one q4k_matvec call puts on the device (torch.profiler:
-   one) and one q4k_matvec_normed call (two), at each decode shape: last,
-   so that no profiler session precedes a timed phase.
+   one) and one q4k_matvec_normed call (one: the rms_norm is in its
+   prologue), at each decode shape: last, so that no profiler session
+   precedes a timed phase.
 
 Every kernel's launches are counted in the run of its path (counts set to 0
 just before it). The last lines are the kernels summary, the nvidia-smi
@@ -105,6 +110,7 @@ SERVE_CLIP_SECONDS = 10.0
 SERVE_REQUESTS = 16
 ALIGNER_PRESET = "qwen3-forced-aligner-0.6b"
 F32_KERNEL_BOUND = 1e-4  # the decode attention over an f32 cache (sums in another order)
+F32_ORDER_BOUND = 1e-5  # f32 outputs against the plain versions that repeat a kernel's order
 ATTN_HEADLINE_WIN = 1024  # the attention window whose time stands in the kernels line
 REPLACES = {
     "q4k_matvec": "qwen3_asr_gguf_tpu/ops/pallas_q4k.py:324",
@@ -252,6 +258,23 @@ def kernel_phase(torch, dev, cfg) -> list[dict]:
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         ok = err <= KERNEL_BOUND * scale
+        extra = {}
+        if name == "q4k_matvec_normed":
+            # the normed row the prologue builds, through kernel 1: bit for bit;
+            # an f32 row against the kernel-order plain version (F32_ORDER_BOUND)
+            row = q4k.normed_row_kernel_order(x.cpu(), norm_w.cpu(), 1e-6).to(dev)
+            require(torch.equal(got.to(x.dtype), q4k.q4k_matvec(row, weights[0])),
+                    f"{name}/{shape}: not bit-equal to q4k_matvec on its normed row")
+            x32 = x.float()
+            got32 = q4k.q4k_matvec_normed(x32, weights[0], norm_w, 1e-6).cpu()
+            want32 = q4k.q4k_matvec_normed_kernel_order(x32.cpu(), weights[0].to("cpu"),
+                                                        norm_w.cpu(), 1e-6)
+            err32 = (got32 - want32).abs().max().item()
+            require(err32 <= F32_ORDER_BOUND * want32.abs().max().item(),
+                    f"{name}/{shape}: f32 {err32} from its kernel-order version")
+            extra = {"bit_equal_to_matvec_on_normed_row": True,
+                     "f32_max_abs_err_vs_kernel_order": err32,
+                     "f32_bound": f"max_abs_err <= {F32_ORDER_BOUND} * max_abs_kernel_order"}
         ms = time_ms(kern, weights, torch)
         # every input read once, the output written once; 2 N K int8 operations
         least, by = bound_ms(nbytes + 2 * k + 2 * n + (4 * k if "normed" in name else 0),
@@ -264,7 +287,7 @@ def kernel_phase(torch, dev, cfg) -> list[dict]:
                "library_ms": dense_matmul_ms(torch, x, weights),
                "library": "torch.matmul on the dequantized bf16 weight (4x the weight "
                           "bytes; without the rms_norm)",
-               "weight_mb": nbytes / 1e6, "gb_per_s": nbytes / (ms * 1e6)}
+               "weight_mb": nbytes / 1e6, "gb_per_s": nbytes / (ms * 1e6), **extra}
         emit(row)
         require(ok, f"{name}/{shape}: kernel disagrees with its plain version ({err} > bound)")
         rows.append(row)
@@ -323,7 +346,12 @@ def rows_kernel_phase(torch, dev, cfg) -> list[dict]:
 
 def attn_kernel_phase(torch, dev, cfg) -> list[dict]:
     """gqa_rows_q8_attention against its plain version at the 1.7B serving
-    shape: B = 8 rows over a 2048-slot int8 cache."""
+    shape: B = 8 rows over a 2048-slot int8 cache, `poss` an int64 tensor on
+    the card; at each window a spread row set (one row inside tile 0, one at
+    a tile edge, one at win - 1) and a mid-window one, an f32 q against the
+    kernel-order plain version, and one CUDA graph of the kernel captured
+    once and replayed after `poss` is overwritten with three other sets;
+    timed at both row sets."""
     from qwen3_asr_gguf_tpu_torch.models import decoder as dec
     from qwen3_asr_gguf_tpu_torch.ops import attn
 
@@ -336,28 +364,68 @@ def attn_kernel_phase(torch, dev, cfg) -> list[dict]:
         k, ks = dec._quant_kv(torch.randn((b, s_max, hkv, d), generator=g, device=dev))
         v, vs = dec._quant_kv(torch.randn((b, s_max, hkv, d), generator=g, device=dev))
         caches.append((k, ks, v, vs))
-    q = (torch.randn((b, hq, d), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    q32 = torch.randn((b, hq, d), generator=g, device=dev) * 0.5
+    q = q32.to(torch.bfloat16)
     scale = d ** -0.5
+
+    def least(poss):  # each row's live slots (slot <= poss[i]) read once: int8 K
+        # and V rows and their two f32 scales per (slot, head); q and out in bf16
+        slots = int((poss + 1).sum())
+        return bound_ms(slots * hkv * (2 * d + 8) + 2 * 2 * b * hq * d,
+                        4 * slots * hq * d, "bf16")
+
     rows = []
     for win in (256, 1024, 2048):
         # one row inside tile 0, one at a tile edge, one at win - 1, the rest spread
         spread = torch.randint(0, win, (b - 3,), generator=g, device=dev)
         poss = torch.cat([torch.tensor([5, 255, win - 1], device=dev), spread])
+        mid = torch.tensor([win // 2 + 37 - 8 * i for i in range(b)], device=dev)
+        checks = {}
+        for label, pt in (("spread", poss), ("mid", mid)):
+            err, mag = rel_check(torch, f"gqa_rows_q8_attention/win={win}/{label}",
+                                 attn.gqa_rows_q8_attention(q, *caches[0], pt, scale, win),
+                                 attn.gqa_rows_q8_attention_ref(q, *caches[0], pt, scale, win))
+            got32 = attn.gqa_rows_q8_attention(q32, *caches[0], pt, scale, win).cpu()
+            want32 = attn.gqa_rows_q8_attention_kernel_order(
+                q32.cpu(), *(t.cpu() for t in caches[0]), pt.cpu(), scale, win)
+            err32 = (got32 - want32).abs().max().item()
+            require(err32 <= F32_ORDER_BOUND * want32.abs().max().item(),
+                    f"gqa_rows_q8_attention/win={win}/{label}: f32 {err32} from its "
+                    "kernel-order version")
+            checks[label] = (err, mag, err32)
+        # one graph, captured at `poss`, replayed at three other row sets
+        pos_t = poss.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = attn.gqa_rows_q8_attention(q, *caches[0], pos_t, scale, win)
+        replayed = []
+        for new in (poss, mid, torch.full_like(poss, win - 1), torch.zeros_like(poss)):
+            pos_t.copy_(new)
+            graph.replay()
+            rel_check(torch, f"gqa_rows_q8_attention/win={win}: graph replay at {new.tolist()}",
+                      out, attn.gqa_rows_q8_attention_ref(q, *caches[0], new, scale, win))
+            replayed.append(new.tolist())
+        del graph
         kern = lambda c: attn.gqa_rows_q8_attention(q, *c, poss, scale, win)  # noqa: E731
         plain = lambda c: attn.gqa_rows_q8_attention_ref(q, *c, poss, scale, win)  # noqa: E731
-        err, mag = rel_check(torch, f"gqa_rows_q8_attention/win={win}", kern(caches[0]),
-                             plain(caches[0]))
-        # each row's live slots (slot <= poss[i]) read once: int8 K and V
-        # rows and their two f32 scales per (slot, head); q and out in bf16
-        slots = int((poss + 1).sum())
-        least, by = bound_ms(slots * hkv * (2 * d + 8) + 2 * 2 * b * hq * d,
-                             4 * slots * hq * d, "bf16")
+        kern_mid = lambda c: attn.gqa_rows_q8_attention(q, *c, mid, scale, win)  # noqa: E731
+        bound, by = least(poss)
         row = {"phase": "kernel_attn", "name": "gqa_rows_q8_attention", "b": b, "hq": hq,
                "hkv": hkv, "d": d, "s": s_max, "win": win, "poss": poss.tolist(),
-               "max_abs_err": err, "max_abs_plain": mag,
+               "blocks_per_row_and_kv_head": attn.ROWS_CLUSTER,
+               "max_abs_err": max(c[0] for c in checks.values()),
+               "max_abs_plain": max(c[1] for c in checks.values()),
                "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain", "ok": True,
+               "f32_max_abs_err_vs_kernel_order": max(c[2] for c in checks.values()),
+               "f32_bound": f"max_abs_err <= {F32_ORDER_BOUND} * max_abs_kernel_order",
+               "graph_replay_poss": replayed,
                "ms": time_ms(kern, caches, torch), "plain_ms": time_ms(plain, caches, torch),
-               "bound_ms": least, "bound_by": by, "library_ms": None}
+               "bound_ms": bound, "bound_by": by,
+               "mid_poss": mid.tolist(), "mid_ms": time_ms(kern_mid, caches, torch),
+               "mid_bound_ms": least(mid)[0],
+               "library_ms": None,
+               "library": "none: no single PyTorch call computes attention with the int8 "
+                          "cache's per-slot scales folded in"}
         emit(row)
         rows.append(row)
     return rows
@@ -366,8 +434,9 @@ def attn_kernel_phase(torch, dev, cfg) -> list[dict]:
 def device_kernels_phase(torch, dev, cfg) -> dict:
     """The kernels that one call of the q4_k matvec wrappers puts on the
     device (torch.profiler, CUDA events only), at every decode shape: one for
-    q4k_matvec, two for q4k_matvec_normed (pass A, pass B). Run after every
-    timed phase, so that no profiler session precedes a timing."""
+    q4k_matvec and one for q4k_matvec_normed (the rms_norm and the
+    quantization are in the prologue). Run after every timed phase, so that
+    no profiler session precedes a timing."""
     from torch.profiler import ProfilerActivity, profile
 
     from qwen3_asr_gguf_tpu_torch.ops import q4k
@@ -398,8 +467,7 @@ def device_kernels_phase(torch, dev, cfg) -> dict:
     row = {"phase": "device_kernels", "per_call": {c: len(v) for c, v in per_call.items()}}
     emit(row)
     for case, launched in per_call.items():
-        want = 1 if case.startswith("q4k_matvec/") else 2
-        require(len(launched) == want, f"{case}: {launched} on the device for one call")
+        require(len(launched) == 1, f"{case}: {launched} on the device for one call")
     return row
 
 

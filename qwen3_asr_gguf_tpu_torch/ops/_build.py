@@ -48,7 +48,6 @@ _SIGNATURES = {
     "q4k_matvec_normed_launch": [
         _P, _I,  # x, x_is_bf16
         _P, _F,  # norm_w (f32), eps
-        _P, _P, _P,  # xq, sx, xsum (scratch)
         _P, _P, _P, _P,  # packed, sub_t, min_t, dd_t
         _P, _I,  # out, out_is_bf16
         _I, _I,  # n, k

@@ -13,8 +13,10 @@ window.
 The serving decode step (`decoder.forward_step_rows`) attends every row's
 query over its own int8 cache row, with the f32 per-(slot, head) scales
 folded into the dots. The kernel reads the FULL caches with their strides
-and stops at each row's last valid slot; the plain version is
-`decoder._gqa_attention_rows_q8` on the `[:, :win]` window.
+and each row's last valid slot from the int64 `poss` on the device, and
+splits the row's live slots over a cluster of `ROWS_CLUSTER` blocks; the
+plain version is `decoder._gqa_attention_rows_q8` on the `[:, :win]`
+window.
 
 A wrapper runs its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel or raises.
@@ -33,6 +35,9 @@ DECODE_MAX_HEAD_DIM = 128  # the single-token kernel: lanes along d, up to 4 out
 DECODE_SUB = 8  # slots of a warp's sub-tile in the single-token kernel
 DECODE_WARPS = {torch.bfloat16: 16, torch.float32: 8}  # warps of a block, by cache dtype
 DECODE_CLUSTER = 8  # blocks per kv head (a thread block cluster), at every window and `pos`
+ROWS_CLUSTER = 4  # the rows kernel: blocks per (row, kv head), at every window and `poss`
+ROWS_WARPS = 8  # warps of a block of the rows kernel
+ROWS_SUB = 8  # slots of a warp's sub-tile in the rows kernel (two score steps of 4)
 _KV_DTYPES = (torch.bfloat16, torch.float32)
 MASKED = -1e30
 
@@ -196,6 +201,62 @@ def gqa_rows_q8_attention_ref(q, k_full, ks_full, v_full, vs_full, poss, scale: 
                                   vs_full[:, :win], mask, scale)
 
 
+def gqa_rows_q8_attention_kernel_order(q, k_full, ks_full, v_full, vs_full, poss,
+                                       scale: float, win: int) -> torch.Tensor:
+    """`gqa_rows_q8_attention` as the CUDA kernel splits and orders it: row
+    i's live slots (slot <= min(poss[i], win - 1)) cut into `ROWS_SUB`-slot
+    sub-tiles, the n sub-tiles split over `ROWS_CLUSTER` blocks (block r takes
+    [r n / C, (r + 1) n / C)), each block's sub-tiles dealt round robin to its
+    `ROWS_WARPS` warps, each warp's own online softmax (score = dot *
+    (ks * scale), tile sum ((p0+p4) + (p1+p5)) + ((p2+p6) + (p3+p7)),
+    l = fma(l, alpha, sum), acc scaled by alpha, then p * vs rounded to q's
+    dtype times V added slot by slot), the warps merged in order, then the
+    blocks in rank order. The q.k dots are torch's f32 sums (the kernel's 8
+    lanes per slot sum in another order). Differs from the plain version by
+    the f32 sum order and where p * vs is rounded only."""
+    b, hq, d = q.shape
+    hkv = k_full.shape[2]
+    g = hq // hkv
+    sub, n_warps = ROWS_SUB, ROWS_WARPS
+    scale_f = torch.tensor(scale, dtype=torch.float32)  # the kernel's f32 scale
+    empty = (torch.full((hkv, g), MASKED), torch.zeros(hkv, g), torch.zeros(hkv, g, d))
+    outs = []
+    for i in range(b):
+        last = min(int(poss[i]), win - 1)
+        n_sub = last // sub + 1 if last >= 0 else 0
+        qf = q[i].float().reshape(hkv, g, d)
+        blocks = []
+        for rank in range(ROWS_CLUSTER):
+            sub0, sub1 = rank * n_sub // ROWS_CLUSTER, (rank + 1) * n_sub // ROWS_CLUSTER
+            warps = []
+            for w in range(n_warps):
+                m, l, acc = empty
+                for j in range(sub0 + w, sub1, n_warps):
+                    s0 = j * sub
+                    keep = torch.arange(s0, s0 + sub) <= last
+                    kt = k_full[i, s0:s0 + sub].float()  # [SUB, Hkv, d], exact
+                    kscale = ks_full[i, s0:s0 + sub].T * scale_f
+                    dots = torch.einsum("hgd,shd->hgs", qf, kt)
+                    s = torch.where(keep, dots * kscale[:, None, :], MASKED)
+                    m_new = torch.maximum(m, s.amax(dim=-1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.where(keep, torch.exp(s - m_new[..., None]), 0.0)
+                    t = p[..., :4] + p[..., 4:]
+                    l = _fma(l, alpha, (t[..., 0] + t[..., 1]) + (t[..., 2] + t[..., 3]))
+                    vsc = torch.where(keep, vs_full[i, s0:s0 + sub].T, 0.0)  # [Hkv, SUB]
+                    pr = (p * vsc[:, None, :]).to(q.dtype).float()
+                    acc = acc * alpha[..., None]
+                    vt = v_full[i, s0:s0 + sub].float()
+                    for r in range(min(sub, last - s0 + 1)):
+                        acc = _fma(pr[..., r, None], vt[r][:, None, :], acc)
+                    m = m_new
+                warps.append((m, l, acc))
+            blocks.append(_merge(warps))
+        _, l_all, o_all = _merge(blocks)
+        outs.append((o_all / torch.clamp(l_all, min=1e-30)[..., None]).reshape(hq, d))
+    return torch.stack(outs).to(q.dtype)
+
+
 def _check_cuda_args(q, k_full, ks_full, v_full, vs_full, poss, win: int) -> None:
     what = "gqa_rows_q8_attention"
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -218,6 +279,8 @@ def _check_cuda_args(q, k_full, ks_full, v_full, vs_full, poss, win: int) -> Non
         if t.device != q.device or t.dtype != dt or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous {dt} {shape} on {q.device}")
+    if k_full.data_ptr() % 16 or v_full.data_ptr() % 16:
+        raise ValueError(f"{what}: k and v must be 16-byte aligned (16-byte copies)")
     if not q.is_contiguous():
         raise ValueError(f"{what}: q must be contiguous")
 
@@ -225,8 +288,10 @@ def _check_cuda_args(q, k_full, ks_full, v_full, vs_full, poss, win: int) -> Non
 def gqa_rows_q8_attention(q, k_full, ks_full, v_full, vs_full, poss, scale: float,
                           win: int) -> torch.Tensor:
     """q [B, Hq, d]; k/v the FULL int8 caches [B, S, Hkv, d] with f32 scales
-    [B, S, Hkv]; poss [B] int64, each row's last valid slot; win (<= S,
-    TS-aligned) -> [B, Hq, d] in q's dtype."""
+    [B, S, Hkv]; poss [B] int64, each row's last valid slot (the kernel reads
+    it on the device, so a captured graph replays at any positions of the
+    window); win (<= S, TS-aligned) -> [B, Hq, d] in q's dtype. One launch,
+    no scratch."""
     if not q.is_cuda:
         return gqa_rows_q8_attention_ref(q, k_full, ks_full, v_full, vs_full, poss, scale, win)
     _check_cuda_args(q, k_full, ks_full, v_full, vs_full, poss, win)

@@ -44,6 +44,7 @@ ROWS_WARPS = 8  # warps of a block: channel tiles of 8 pairs times K slices
 ROWS_MIN_BLOCKS = 64  # blocks along N below which a block narrows
 ROWS_FILL_BLOCKS = 96  # blocks in all that a split of K makes up to
 MAX_K = 12288  # the kernels stage a quantized activation row in shared memory
+NORMED_MAX_K = 2048  # the fused-norm matvec holds the whole row in registers
 
 
 def pick_subk(k: int) -> int | None:
@@ -320,6 +321,42 @@ def q4k_matmul_rows_kernel_order(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
     return sum_in_order([sum_in_order(mine) for mine in parts]).to(x.dtype)
 
 
+def normed_row_kernel_order(x: torch.Tensor, norm_w: torch.Tensor, eps: float) -> torch.Tensor:
+    """rms_norm(x) * norm_w rounded to bf16, as the prologue of
+    `q4k_matvec_normed` builds it: lane l of warp w (8 warps) holds the four
+    values 4l .. 4l + 3 of each 128-value piece w, w + 8, ... and adds their
+    squares in that order (x*x, then +, each rounded once to f32); the lanes
+    are summed by a butterfly (xor 16, 8, 4, 2, 1), the warps in warp order;
+    rstd = 1 / sqrt(ss / K + eps), each step rounded once (ss / K is exact:
+    K is a power of two wherever `supported_normed` holds); then
+    bf16((x * rstd) * norm_w). Returns the bf16 row in x's shape."""
+    k = x.shape[-1]
+    piece = 4 * 32
+    pieces = -(-k // (piece * 8))  # per warp
+    xp = torch.zeros(pieces * 8 * piece)
+    xp[:k] = x.reshape(k).float()
+    v = xp.reshape(pieces, 8, 32, 4)  # [piece of the warp, warp, lane, value]
+    ss = torch.zeros(8, 32)
+    for c in range(pieces):
+        for e in range(4):
+            ss = ss + v[c, :, :, e] * v[c, :, :, e]
+    idx = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        ss = ss + ss[:, idx ^ o]
+    total = sum_in_order(list(ss[:, 0]))
+    rstd = torch.reciprocal(torch.sqrt(total / k + torch.tensor(eps, dtype=torch.float32)))
+    xn = (x.reshape(k).float() * rstd) * norm_w.reshape(k).float()
+    return xn.to(torch.bfloat16).reshape(x.shape)
+
+
+def q4k_matvec_normed_kernel_order(x: torch.Tensor, w: Q4KWeight, norm_w: torch.Tensor,
+                                   eps: float) -> torch.Tensor:
+    """`q4k_matvec_normed` step by step as the CUDA kernel computes it: the
+    normed row of `normed_row_kernel_order`, then `q4k_matvec_kernel_order`
+    on it. Differs from `q4k_matvec_normed_ref` by the f32 sum orders only."""
+    return q4k_matvec_kernel_order(normed_row_kernel_order(x, norm_w, eps).to(x.dtype), w)
+
+
 def q4k_matvec_normed_ref(x: torch.Tensor, w: Q4KWeight, norm_w: torch.Tensor,
                           eps: float) -> torch.Tensor:
     """Plain version of `q4k_matvec_normed`: rms_norm(x)*norm_w in f32, the
@@ -384,13 +421,6 @@ def _check_cuda_args(x: torch.Tensor, w: Q4KWeight, what: str, rows: int = 1) ->
         raise ValueError(f"{what}: weight planes are not aligned for vector loads")
 
 
-def _scratch(x: torch.Tensor, k: int):
-    g = k // GROUP
-    return (torch.empty(k, dtype=torch.int8, device=x.device),
-            torch.empty(g, dtype=torch.float32, device=x.device),
-            torch.empty(g, dtype=torch.float32, device=x.device))
-
-
 def q4k_matvec(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
     """x [..., K] (one row) @ dequant(w).T -> [..., N] in x's dtype: one
     launch that quantizes the row in every block's prologue; no scratch."""
@@ -414,25 +444,27 @@ def q4k_matvec(x: torch.Tensor, w: Q4KWeight) -> torch.Tensor:
 
 def q4k_matvec_normed(x: torch.Tensor, w: Q4KWeight, norm_w: torch.Tensor,
                       eps: float) -> torch.Tensor:
-    """rms_norm(x, norm_w, eps) @ dequant(w).T in one kernel pair; equal to
-    `q4k_matvec(rms_norm(x, norm_w, eps), w)` for bf16 x."""
+    """rms_norm(x, norm_w, eps) @ dequant(w).T in one launch that builds the
+    normed bf16 row in every block's prologue; no scratch. Equal to
+    `q4k_matvec(normed_row_kernel_order(x, norm_w, eps), w)` bit for bit."""
     if not x.is_cuda:
         return q4k_matvec_normed_ref(x, w, norm_w, eps)
     _check_cuda_args(x, w, "q4k_matvec_normed")
     n, k = w.shape
-    if k > 2048:
-        raise ValueError(f"q4k_matvec_normed: K={k} exceeds one 2048-wide step")
+    if k > NORMED_MAX_K:
+        raise ValueError(f"q4k_matvec_normed: K={k} exceeds one {NORMED_MAX_K}-wide step")
     norm_w = norm_w.reshape(k)
     if norm_w.dtype != torch.float32 or norm_w.device != x.device or not norm_w.is_contiguous():
         raise ValueError("q4k_matvec_normed: norm_w must be contiguous f32 on x's device")
-    xq, sx, xsum = _scratch(x, k)
+    if any(p.data_ptr() % 16 for p in (x, norm_w, w.sub_t, w.min_t, w.dd_t)):
+        raise ValueError("q4k_matvec_normed: x, norm_w and the scale planes must be 16-byte "
+                         "aligned")
     out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _build.lib().q4k_matvec_normed_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), norm_w.data_ptr(), float(eps),
-        xq.data_ptr(), sx.data_ptr(), xsum.data_ptr(), w.packed.data_ptr(),
-        w.sub_t.data_ptr(), w.min_t.data_ptr(), w.dd_t.data_ptr(), out.data_ptr(),
-        int(out.dtype == torch.bfloat16), n, k, stream,
+        w.packed.data_ptr(), w.sub_t.data_ptr(), w.min_t.data_ptr(), w.dd_t.data_ptr(),
+        out.data_ptr(), int(out.dtype == torch.bfloat16), n, k, stream,
     )
     _build.check(rc, "q4k_matvec_normed")
     _build.count_launch(q4k_matvec_normed)

@@ -714,3 +714,107 @@ def test_batcher_rounds_its_rows_to_the_rows_kernel(cuda, tmp_path):
         cb.close()
     assert isinstance(res.text, str) and steps > 0
     assert launches == 113 * steps
+
+
+@pytest.mark.cuda
+def test_matvec_normed_is_one_device_launch(cuda):
+    """q4k_matvec_normed is one kernel on the device per call (the rms_norm
+    and the quantization are in its prologue), and allocates nothing but its
+    output."""
+    from torch.profiler import ProfilerActivity, profile
+
+    w = _weight(4096, 2048, 4, cuda)
+    x = _x(2048, torch.bfloat16, cuda)
+    nw = torch.rand(2048, generator=torch.Generator().manual_seed(8)).to(cuda) + 0.5
+    before = q4k.q4k_matvec_normed.launches
+    q4k.q4k_matvec_normed(x, w, nw, 1e-6)
+    assert q4k.q4k_matvec_normed.launches == before + 1
+    torch.cuda.synchronize()
+    # a session whose events are thrown away first: a profiler session may see
+    # no device events at all while CUPTI comes up (chip_smoke.py, device_kernels)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device=cuda).add_(1.0)
+        torch.cuda.synchronize()
+    calls = 4
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            q4k.q4k_matvec_normed(x, w, nw, 1e-6)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == calls and all("q4k_matvec_one_kernel" in k for k in kernels), kernels
+    allocs = [e.name for e in prof.events() if e.name in ("aten::empty", "aten::empty_strided")]
+    assert len(allocs) == calls, allocs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(4096, 2048), (12288, 2048), (1024, 512), (512, 1024)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_matvec_normed_equals_matvec_on_its_normed_row(cuda, n, k, dtype):
+    """The fused-norm kernel builds the normed bf16 row in its prologue as
+    `normed_row_kernel_order` does, then runs kernel 1's weight stream: its
+    output equals q4k_matvec on that row bit for bit, at qkv and gate_up (and
+    at K = 512, where half the warps hold no piece of the row), and the
+    kernel-order plain version within 1e-5 of max on f32 outputs."""
+    w = _weight(n, k, n + 3 * k, cuda)
+    x = (_x(k, torch.float32, cuda, seed=k) * 3).to(dtype)
+    nw = torch.rand(k, generator=torch.Generator().manual_seed(n)).to(cuda) + 0.5
+    got = q4k.q4k_matvec_normed(x, w, nw, 1e-6)
+    row = q4k.normed_row_kernel_order(x.cpu(), nw.cpu(), 1e-6).to(cuda, dtype)
+    assert torch.equal(got, q4k.q4k_matvec(row, w))
+    if dtype == torch.float32 and n <= 4096:
+        want = q4k.q4k_matvec_normed_kernel_order(x.cpu(), w.to("cpu"), nw.cpu(), 1e-6)
+        assert _rel_err(got.cpu(), want) <= 1e-5
+
+
+def _rows_poss(b, win, device):
+    """Row positions of every class: one live slot, a share of zero live
+    slots for most blocks (pos 3: one sub-tile), a tile edge, win - 1,
+    mid-window, and the rest spread."""
+    fixed = [0, 3, 255, win - 1, win // 2 + 37]
+    spread = torch.randint(0, win, (max(0, b - len(fixed)),),
+                           generator=torch.Generator().manual_seed(win)).tolist()
+    return torch.tensor((fixed + spread)[:b], device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,d", [(16, 8, 128), (12, 4, 128), (8, 1, 256), (4, 4, 128)])
+def test_rows_q8_attention_vs_kernel_order(cuda, hq, hkv, d):
+    """With an f32 q the rows kernel equals the plain version that repeats
+    its split (cluster blocks, warps, 8-slot sub-tiles) and its ordered
+    merges to 1e-5 of max (the q.k dots summed in another order), at every
+    group size class and both head dims, windows 256 / 1024 / 2048."""
+    b, s = 6, 2048
+    k, ks, v, vs = _q8_cache(b, s, hkv, d, hq + d, cuda)
+    q = (torch.randn(b, hq, d, generator=torch.Generator().manual_seed(hq)) * 0.5).to(cuda)
+    for win in (256, 1024, 2048):
+        poss = _rows_poss(b, win, cuda)
+        got = attn.gqa_rows_q8_attention(q, k, ks, v, vs, poss, d ** -0.5, win)
+        want = attn.gqa_rows_q8_attention_kernel_order(
+            q.cpu(), k.cpu(), ks.cpu(), v.cpu(), vs.cpu(), poss.cpu(), d ** -0.5, win)
+        assert _rel_err(got.cpu(), want) <= 1e-5, win
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 1e-2), (torch.float32, 1e-4)])
+def test_rows_q8_attention_graph_replays_at_other_positions(cuda, dtype, bound):
+    """One CUDA graph of the rows kernel, captured once, replayed after the
+    device `poss` is overwritten with three other sets of positions: each
+    replay equals the plain version at its positions (the grid depends on B,
+    Hkv and the window alone; the kernel reads `poss` on the device)."""
+    b, hq, hkv, d, s, win = 8, 16, 8, 128, 2048, 1024
+    k, ks, v, vs = _q8_cache(b, s, hkv, d, 31, cuda)
+    q = (torch.randn(b, hq, d, generator=torch.Generator().manual_seed(32)) * 0.5).to(cuda, dtype)
+    poss = _rows_poss(b, win, cuda)
+    attn.gqa_rows_q8_attention(q, k, ks, v, vs, poss, d ** -0.5, win)  # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = attn.gqa_rows_q8_attention.launches
+    with torch.cuda.graph(graph):
+        out = attn.gqa_rows_q8_attention(q, k, ks, v, vs, poss, d ** -0.5, win)
+    assert attn.gqa_rows_q8_attention.launches == before + 1  # the capture
+    sets = [poss.tolist(), [win - 1] * b, [0] * b, list(range(3, 3 + 127 * b, 127))]
+    for new in sets:
+        poss.copy_(torch.tensor(new))  # on the stream the graph replays on: ordered before it
+        graph.replay()
+        want = attn.gqa_rows_q8_attention_ref(q, k, ks, v, vs, poss, d ** -0.5, win)
+        assert _rel_err(out, want) <= bound, new

@@ -245,3 +245,92 @@ def test_matvec_kernel_order_vs_plain_and_jax(n, k, dtype):
                                                else jnp.float32)
     jwant = np.asarray(pq.q4k_matvec(jx, _jax_w(p)), np.float32)
     assert np.abs(got.float().numpy() - jwant).max() <= bound * np.abs(jwant).max()
+
+
+# -- the one-launch fused-norm matvec (the Hopper design) -------------------------
+
+
+def _lane_order_normed_row(x: np.ndarray, nw: np.ndarray, eps: float) -> np.ndarray:
+    """The fused-norm prologue written out with numpy f32 scalars: lane l of
+    warp w squares and adds, in order, the values 4l .. 4l + 3 of the
+    128-value pieces w, w + 8, ...; butterflies over the lanes (xor 16 .. 1);
+    the warps added in order; rstd = 1 / sqrt(ss / K + eps); bf16(x * rstd * w)."""
+    f32 = np.float32
+    k = x.size
+    x = x.astype(f32)
+    warp_ss = []
+    for w in range(8):
+        lanes = []
+        for lane in range(32):
+            ss = f32(0.0)
+            for base in range(w * 128, k, 8 * 128):
+                for e in range(4):
+                    v = x[base + 4 * lane + e]
+                    ss = f32(ss + f32(v * v))
+            lanes.append(ss)
+        for o in (16, 8, 4, 2, 1):
+            lanes = [f32(lanes[i] + lanes[i ^ o]) for i in range(32)]
+        warp_ss.append(lanes[0])
+    total = warp_ss[0]
+    for s in warp_ss[1:]:
+        total = f32(total + s)
+    rstd = f32(f32(1.0) / f32(np.sqrt(f32(f32(total / f32(k)) + f32(eps)))))
+    xn = ((x * rstd).astype(f32) * nw.astype(f32)).astype(f32)
+    return torch.from_numpy(xn).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("k", [512, 1024, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_normed_row_kernel_order_bit_equal_to_lane_order(k, dtype):
+    """`normed_row_kernel_order` (the fused-norm kernel's prologue) equals the
+    lane-order sums written out in numpy bit for bit, and the port's
+    rms_norm within one bf16 step (the sum of squares in another order can
+    move rstd by an ulp)."""
+    rng = np.random.default_rng(k + 7)
+    x = torch.from_numpy((rng.standard_normal((1, k)) * rng.uniform(0.1, 4.0, (1, k)))
+                         .astype(np.float32)).to(dtype)
+    nw = torch.from_numpy(np.abs(rng.standard_normal(k)).astype(np.float32) + 0.1)
+    got = q4k.normed_row_kernel_order(x, nw, 1e-6)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    want = _lane_order_normed_row(x.float().numpy()[0], nw.numpy(), 1e-6)
+    np.testing.assert_array_equal(got.float().numpy()[0], want)
+    plain = rms_norm(x, nw, 1e-6).float()
+    np.testing.assert_allclose(got.float().numpy(), plain.numpy(), rtol=2 ** -7, atol=0)
+
+
+@pytest.mark.parametrize("n,k", [(512, 2048), (1024, 1024), (512, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matvec_normed_kernel_order_vs_plain_and_jax(n, k, dtype):
+    """`q4k_matvec_normed_kernel_order` (the prologue's normed row, then
+    kernel 1's lane sums) against the plain version and the JAX kernel in
+    interpret mode: f32 outputs within 1e-5 of max (f32 sum orders), bf16
+    outputs at most one bf16 step apart (rtol 2^-7) where the sums round
+    apart. The JAX kernel takes the row in bf16, as the decode step has it."""
+    p = _packed(n, k, seed=n + 5 * k)
+    rng = np.random.default_rng(n + k)
+    x = torch.from_numpy(rng.standard_normal((1, k)).astype(np.float32)).to(torch.bfloat16)
+    nw = torch.from_numpy(np.abs(rng.standard_normal(k)).astype(np.float32) + 0.1)
+    xd = x.to(dtype)
+    got = q4k.q4k_matvec_normed_kernel_order(xd, _torch_w(p), nw, 1e-6)
+    assert got.shape == (1, n) and got.dtype == dtype
+    want = q4k.q4k_matvec_normed_ref(xd, _torch_w(p), nw, 1e-6).float()
+    if dtype == torch.float32:
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want.numpy(), rtol=2 ** -7,
+                                   atol=1e-6 * want.abs().max().item())
+    jwant = np.asarray(pq.q4k_matvec_normed(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+                                            _jax_w(p), jnp.asarray(nw.numpy()), 1e-6), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), jwant, rtol=2 ** -7,
+                               atol=1e-6 * np.abs(jwant).max())
+
+
+def test_normed_wrapper_takes_one_launch_without_scratch():
+    """The fused-norm kernel's C entry point is kernel 1's with norm_w and
+    eps added: no scratch pointers (one launch, no per-call allocation)."""
+    from qwen3_asr_gguf_tpu_torch.ops import _build
+
+    sig = _build._SIGNATURES["q4k_matvec_normed_launch"]
+    assert sig == _build._SIGNATURES["q4k_matvec_launch"][:2] + [_build._P, _build._F] \
+        + _build._SIGNATURES["q4k_matvec_launch"][2:]
+    assert q4k.NORMED_MAX_K == 2048 and not hasattr(q4k, "_scratch")

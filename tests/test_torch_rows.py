@@ -261,3 +261,91 @@ def test_row_cache_layout():
     assert c["k"][0].shape == (3, 64, cfg.num_kv_heads, cfg.head_dim)
     assert c["k_s"][0].shape == (3, 64, cfg.num_kv_heads) and c["k_s"][0].dtype == torch.float32
     assert set(tdec.init_cache(cfg, 64, torch.bfloat16)) == {"k", "v"}
+
+
+# -- the cluster design of the rows attention (kernel 5) --------------------------
+
+
+def _q8_inputs(b, s, hq, hkv, d, seed, dtype):
+    rng = np.random.default_rng(seed)
+    k, ks = tdec._quant_kv(torch.from_numpy(rng.standard_normal((b, s, hkv, d))
+                                            .astype(np.float32)))
+    v, vs = tdec._quant_kv(torch.from_numpy(rng.standard_normal((b, s, hkv, d))
+                                            .astype(np.float32)))
+    q = (torch.from_numpy(rng.standard_normal((b, hq, d)).astype(np.float32)) * 0.5).to(dtype)
+    return q, k, ks, v, vs
+
+
+def _edge_poss(win):
+    """One live slot; one sub-tile, so 7 of the 8 blocks hold no live slot; a
+    256-slot tile edge; win - 1; mid-window."""
+    return torch.tensor([0, 3, tattn.TS - 1, win - 1, win // 2 + 37])
+
+
+# (dtype, win, g, d): group sizes 1-8 (3 is no power of two) and both head dims
+ROWS_ORDER_CASES = [
+    ("f32", 256, 2, 128), ("bf16", 256, 2, 128), ("f32", 1024, 3, 128), ("bf16", 1024, 1, 128),
+    ("f32", 2048, 8, 128), ("bf16", 2048, 2, 128), ("f32", 512, 4, 256), ("bf16", 512, 8, 256),
+]
+
+
+@pytest.mark.parametrize("dtype,win,g,d", ROWS_ORDER_CASES)
+def test_rows_kernel_order_vs_plain_version(dtype, win, g, d):
+    """`gqa_rows_q8_attention_kernel_order` (the split over a cluster of
+    blocks and their warps, per-warp online softmax, ordered merges) against
+    the plain version at rows with one live slot, a share of zero live slots
+    for most blocks, a tile edge, win - 1 and mid-window: f32 within 1e-5 of
+    max|plain| (sums in another order); bf16 within one bf16 step of max
+    (2^-7: p * vs is rounded before the normalization, not after)."""
+    hkv = 2
+    q, k, ks, v, vs = _q8_inputs(5, win, g * hkv, hkv, d, win + g + d,
+                                 torch.float32 if dtype == "f32" else torch.bfloat16)
+    poss = _edge_poss(win)
+    want = tattn.gqa_rows_q8_attention_ref(q, k, ks, v, vs, poss, d ** -0.5, win).float()
+    got = tattn.gqa_rows_q8_attention_kernel_order(q, k, ks, v, vs, poss, d ** -0.5, win)
+    assert got.shape == want.shape and got.dtype == q.dtype
+    bound = 1e-5 if dtype == "f32" else 2 ** -7
+    for i in range(len(poss)):  # each row against its own scale
+        assert (got[i].float() - want[i]).abs().max() <= bound * want[i].abs().max(), i
+
+
+@pytest.mark.parametrize("win_tiles,d", [(1, 128), (2, 128), (2, 256)])
+def test_rows_kernel_order_vs_jax_kernel(win_tiles, d):
+    """The kernel-order plain version against the JAX package's kernel in
+    interpret mode (its grid walks each row's 256-slot tiles in order), at
+    the bound of `test_rows_q8_attention_plain_vs_jax_kernel`."""
+    b, hq, hkv = 5, 8, 4
+    s = 2 * tattn.TS
+    win = win_tiles * tattn.TS
+    rng = np.random.default_rng(d + win)
+    dense_k = (rng.standard_normal((b, s, hkv, d)) * 0.3).astype(np.float32)
+    dense_v = (rng.standard_normal((b, s, hkv, d)) * 0.3).astype(np.float32)
+    qn = (rng.standard_normal((b, hq, d)) * 0.3).astype(np.float32)
+    poss = _edge_poss(win).numpy()
+    kq, ks = jdec._quant_kv(jnp.asarray(dense_k))
+    vq, vs = jdec._quant_kv(jnp.asarray(dense_v))
+    want = jattn.gqa_rows_q8_attention(jnp.asarray(qn), kq, ks, vq, vs,
+                                       jnp.asarray(poss, jnp.int32), d ** -0.5, win)
+    t = [torch.from_numpy(np.array(a)) for a in (kq, ks, vq, vs)]
+    got = tattn.gqa_rows_q8_attention_kernel_order(torch.from_numpy(qn), *t,
+                                                   torch.from_numpy(poss), d ** -0.5, win)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3, atol=2e-3)
+
+
+def test_rows_cluster_constants_are_the_compiled_ones():
+    """`ROWS_CLUSTER`, `ROWS_WARPS` and `ROWS_SUB`, which the kernel-order
+    version splits by, are the constants csrc/attn_rows_q8.cu compiles in; the
+    cluster is a portable size (at most 8), every window is whole sub-tiles,
+    and the grid is B * Hkv clusters at every window and `poss`."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tattn.__file__).resolve().parent.parent / "csrc" / "attn_rows_q8.cu").read_text()
+
+    def constant(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert (constant("CLUSTER"), constant("WARPS"), constant("SUB")) == (
+        tattn.ROWS_CLUSTER, tattn.ROWS_WARPS, tattn.ROWS_SUB)
+    assert tattn.ROWS_CLUSTER in (2, 4, 8) and tattn.TS % tattn.ROWS_SUB == 0
+    assert "cfg.gridDim = dim3(CLUSTER, b * hkv, 1)" in src
