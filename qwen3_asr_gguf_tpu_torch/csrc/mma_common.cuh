@@ -1,6 +1,6 @@
 // Shared pieces of the hand-written kernels: asynchronous global -> shared
 // copies (cp.async) with their group bookkeeping (q4k_matvec.cu,
-// attn_decode.cu, q4k_matmul_rows.cu, q4_matmul.cu), and the warp-level
+// attn_decode.cu, q4k_matmul_rows.cu, q4_matmul.cu, fused_mlp.cu), and the warp-level
 // mma.sync tiles of the two tensor-core kernels (q4k_matmul_rows.cu,
 // q4_matmul.cu).
 //

@@ -3,7 +3,7 @@
 from one checkout, so that two trees (this one and an unpacked parent commit)
 are timed in one call on one card:
 
-    python3 qwen3_asr_gguf_tpu_torch/devtools/kernel_phases.py ROOT [rows | rows-positions | widths]
+    python3 qwen3_asr_gguf_tpu_torch/devtools/kernel_phases.py ROOT [rows | rows-positions | widths | mlp]
 
 Run it as a file, not with `-m`: ROOT goes first on `sys.path`, so ROOT's
 package, `chip_smoke` and kernel sources are the ones built (into ROOT's
@@ -18,7 +18,11 @@ for kernel 5 at the serving shape, all 8 rows at one position
 every live slot). With `rows` only kernel 5's phase and probe run, with
 `rows-positions` the probe alone; `widths` times kernels 1 and 2 at K = 2048
 against the number of 16-channel tiles (`matvec_widths`: where the tiles
-outnumber the blocks the card holds, blocks take a second tile).
+outnumber the blocks the card holds, blocks take a second tile); `mlp` runs
+kernel 7's phase alone and then the profiler's device time of each device
+kernel one `fused_mlp_matvec` call launches, at both MLP shapes
+(`mlp_device`: two kernels for the two-launch design, one for the
+cooperative one).
 """
 
 from __future__ import annotations
@@ -151,6 +155,40 @@ def matvec_widths(torch, cs, dev) -> None:
         del weights
 
 
+def mlp_device(torch, dev) -> None:
+    """Each device kernel of one fused_mlp_matvec call: name and device us,
+    averaged over calls on weights cold in L2."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qwen3_asr_gguf_tpu_torch.ops import mlp
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    with profile(activities=[ProfilerActivity.CUDA]):  # CUPTI comes up; thrown away
+        torch.zeros(1, device=dev).add_(1.0)
+        torch.cuda.synchronize()
+    for d, m in ((2048, 6144), (1024, 3072)):
+        sets = [tuple(t for shape in ((m, d), (m, d), (d, m)) for t in (
+            torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8),
+            torch.rand(shape[0], generator=g, device=dev) * 4e-4 + 1e-4))
+            for _ in range(max(2, -(-(128 << 20) // (3 * d * m))))]
+        x = torch.randn((1, d), generator=g, device=dev).to(torch.bfloat16)
+        for a in sets:
+            mlp.fused_mlp_matvec(x, *a)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for a in sets:
+                mlp.fused_mlp_matvec(x, *a)
+            torch.cuda.synchronize()
+        kernels = {e.key: e.device_time_total / len(sets) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA}
+        print(json.dumps({"phase": "mlp_device", "hidden": d, "m": m, "device_us": kernels,
+                          "kernels_per_call": sum(e.count for e in prof.key_averages()
+                                                  if e.device_type == torch.autograd.DeviceType.CUDA)
+                          / len(sets)}), flush=True)
+        del sets
+
+
 def main() -> None:
     root = Path(sys.argv[1]).resolve()
     sys.path.insert(0, str(root))
@@ -174,6 +212,10 @@ def main() -> None:
         return
     if mode == ["widths"]:
         matvec_widths(torch, cs, dev)
+        return
+    if mode == ["mlp"]:
+        cs.mlp_kernel_phase(torch, dev)
+        mlp_device(torch, dev)
         return
     cs.kernel_phase(torch, dev, cfg.text)
     cs.decode_attn_kernel_phase(torch, dev, cfg.text)

@@ -90,8 +90,9 @@ _SIGNATURES = {
     "fused_mlp_launch": [
         _P, _I,  # x, x_is_bf16 (out takes x's dtype)
         _P, _P, _P, _P, _P, _P,  # wg, sg, wu, su, wd, sd
-        _P, _P,  # act (f32 scratch of m values), out
+        _P, _P, _P,  # act (f32, m values), counters (uint32, zeroed), out
         _I, _I, _I,  # m, d, tile_m
+        _I, _I, _I,  # blocks, Wd slab rows per block, dynamic shared memory (ops.mlp.fused_mlp_plan)
         _P,  # stream
     ],
 }

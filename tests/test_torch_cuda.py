@@ -456,6 +456,95 @@ def test_fused_mlp_raises_instead_of_falling_back(cuda):
     assert mlp.fused_mlp_matvec.launches == before
 
 
+def _counters_are_zero(device) -> bool:
+    torch.cuda.synchronize()
+    return all(int(c.abs().sum()) == 0 for (dev, _), c in mlp._counters.items()
+               if dev == device.index)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_mlp_calls_are_bit_identical_back_to_back(cuda, dtype):
+    """Two calls on one input are bit-identical, and calls queued back to
+    back with no synchronize between them (two inputs in turn) each give the
+    eager result: every launch finds its counters at zero."""
+    d, m = 2048, 6144
+    args = _mlp_args(m, d, 5, cuda)
+    xs = [torch.randn(1, d, generator=torch.Generator().manual_seed(s)).to(cuda, dtype)
+          for s in (6, 7)]
+    eager = []
+    for x in xs:
+        eager.append(mlp.fused_mlp_matvec(x, *args))
+        torch.cuda.synchronize()
+    assert torch.equal(mlp.fused_mlp_matvec(xs[0], *args), eager[0])
+    queued = [mlp.fused_mlp_matvec(xs[i % 2], *args) for i in range(8)]
+    torch.cuda.synchronize()
+    for i, got in enumerate(queued):
+        assert torch.equal(got, eager[i % 2]), i
+    assert not torch.equal(eager[0], eager[1])
+    assert _counters_are_zero(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m", [(2048, 6144), (1024, 3072)])
+def test_fused_mlp_graph_replays_at_other_x(cuda, d, m):
+    """One CUDA graph of two calls, captured once and replayed after x is
+    overwritten with two other rows, gives the eager calls' outputs bit for
+    bit (the counters are reset inside each launch)."""
+    args = _mlp_args(m, d, 8, cuda)
+    xs = [torch.randn(1, d, generator=torch.Generator().manual_seed(s)).to(cuda, torch.bfloat16)
+          for s in (9, 10, 11)]
+    x = xs[0].clone()
+    mlp.fused_mlp_matvec(x, *args)  # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = mlp.fused_mlp_matvec.launches
+    with torch.cuda.graph(graph):
+        out = mlp.fused_mlp_matvec(mlp.fused_mlp_matvec(x, *args), *args)
+    assert mlp.fused_mlp_matvec.launches == before + 2  # the capture
+    for new in xs[1:]:
+        x.copy_(new)  # on the stream the graph replays on: ordered before it
+        graph.replay()
+        torch.cuda.synchronize()
+        want = mlp.fused_mlp_matvec(mlp.fused_mlp_matvec(new, *args), *args)
+        assert torch.equal(out, want)
+    assert _counters_are_zero(cuda)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_refuses_what_does_not_fit(cuda):
+    """A shape whose Wd slab and staging exceed the shared memory of a block,
+    or whose D is beyond the kernel's registers, raises before any launch;
+    a grid larger than the card holds at once is refused by the cooperative
+    launch and raises through `_build.check`."""
+    from qwen3_asr_gguf_tpu_torch.ops import _build
+
+    before = mlp.fused_mlp_matvec.launches
+    for d, m in ((2048, 16384), (4096, 512)):
+        w = torch.zeros(m, d, dtype=torch.int8, device=cuda)
+        s = torch.ones(m, device=cuda)
+        x = torch.randn(1, d, device=cuda)
+        with pytest.raises(ValueError):
+            mlp.fused_mlp_matvec(x, w, s, w, s, w.reshape(d, m), torch.ones(d, device=cuda))
+    assert mlp.fused_mlp_matvec.launches == before
+    d, m = 1024, 3072
+    args = _mlp_args(m, d, 12, cuda)
+    x = torch.randn(1, d, device=cuda)
+    blocks = 16 * torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = mlp.fused_mlp_plan(m, d, mlp.TILE_M, blocks)
+    act, out = torch.empty(m, device=cuda), torch.empty_like(x)
+    ctr = torch.zeros(mlp.COUNTERS, dtype=torch.int32, device=cuda)
+    rc = _build.lib().fused_mlp_launch(
+        x.data_ptr(), 0, *(a.data_ptr() for a in args), act.data_ptr(), ctr.data_ptr(),
+        out.data_ptr(), m, d, mlp.TILE_M, plan.blocks, plan.slab_rows, plan.smem_bytes,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+    with pytest.raises(RuntimeError):
+        _build.check(rc, "fused_mlp_matvec")
+    torch.cuda.synchronize()
+    assert int(ctr.abs().sum()) == 0  # nothing ran
+
+
 @pytest.mark.cuda
 def test_int8_step_launches_the_fused_mlp_or_raises(cuda):
     """On the card an int8 decode step with `fused_mlp` runs kernel 7 once
@@ -818,3 +907,58 @@ def test_rows_q8_attention_graph_replays_at_other_positions(cuda, dtype, bound):
         graph.replay()
         want = attn.gqa_rows_q8_attention_ref(q, k, ks, v, vs, poss, d ** -0.5, win)
         assert _rel_err(out, want) <= bound, new
+
+
+_ONE_LAUNCH_SCRIPT = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from qwen3_asr_gguf_tpu_torch.ops import mlp
+
+d, m = int(sys.argv[1]), int(sys.argv[2])
+dev = torch.device("cuda")
+g = torch.Generator(device=dev)
+g.manual_seed(3)
+args = [t for shape in ((m, d), (m, d), (d, m)) for t in (
+    torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8),
+    torch.rand(shape[0], generator=g, device=dev) * 4e-4 + 1e-4)]
+x = torch.randn((1, d), generator=g, device=dev).to(torch.bfloat16)
+mlp.fused_mlp_matvec(x, *args)  # build, allocate the counters
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]):  # CUPTI comes up; thrown away
+    torch.zeros(1, device=dev).add_(1.0)
+    torch.cuda.synchronize()
+sessions = []
+for _ in range(2):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mlp.fused_mlp_matvec(x, *args)
+        torch.cuda.synchronize()
+    sessions.append([e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA])
+counters = [int(c.abs().sum()) for c in mlp._counters.values()]
+print(json.dumps({"sessions": sessions, "counters": counters}))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m", [(2048, 6144), (1024, 3072)])
+def test_fused_mlp_is_one_device_launch(cuda, d, m):
+    """fused_mlp_matvec is one kernel on the device per call (one cooperative
+    launch, no second kernel for the down product), and it leaves its
+    counters at zero. In a process of its own, one call per profiler session,
+    as chip_smoke.py's `device_kernels` phase does: in this file's process,
+    after the other tests' profiler sessions, a session may record none or
+    only some of its kernels."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", _ONE_LAUNCH_SCRIPT, str(d), str(m)], cwd=repo,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    result = json.loads(run.stdout.strip().splitlines()[-1])
+    for kernels in result["sessions"]:
+        assert len(kernels) == 1 and "fused_mlp_kernel" in kernels[0], kernels
+    assert result["counters"] == [0]

@@ -151,3 +151,63 @@ def test_can_fuse_mlp_conditions():
     assert not tdec._can_fuse_mlp({"gateup_proj": layer(512, 128)["gate_proj"]}, x)
     with pytest.raises(ValueError):  # asked for, but not fusable: no quiet unfused MLP
         tdec._mlp(layer(256, 128), x, fused_kernel=True)
+
+
+# (D, M, tile_m) of the kernel's `cuda` tests: both model shapes first
+KERNEL_SHAPES = [(2048, 6144, 512), (1024, 3072, 512), (512, 1024, 512), (256, 512, 256),
+                 (128, 1024, 64)]
+
+
+@pytest.mark.parametrize("d,m,tile", KERNEL_SHAPES)
+@pytest.mark.parametrize("blocks", [132, 114])
+def test_fused_mlp_plan_deals_every_row_once(d, m, tile, blocks):
+    """The launch plan: every M row is dealt to exactly one block, each
+    block's rows in increasing order (tile 0's first), every D row falls in
+    exactly one Wd slab, and the slab plus the staging fits the shared
+    memory the plan declares."""
+    plan = mlp.fused_mlp_plan(m, d, tile, blocks)
+    assert plan.blocks == blocks and (plan.m, plan.d, plan.tile_m) == (m, d, tile)
+    assert sorted(r for b in range(blocks) for r in plan.act_rows(b)) == list(range(m))
+    for b in range(blocks):
+        rows = list(plan.act_rows(b))
+        assert rows == sorted(rows)
+        first_tile = [r for r in rows if r < tile]
+        assert rows[:len(first_tile)] == first_tile
+    assert [r for b in range(blocks) for r in plan.slab(b)] == list(range(d))
+    assert plan.slab_rows == -(-d // blocks)
+    assert all(len(plan.slab(b)) <= plan.slab_rows for b in range(blocks))
+    staging = plan.slab_rows * m + m + d + 4 * (m // tile) + 4 * plan.slab_rows * (m // tile)
+    assert staging <= plan.smem_bytes <= mlp.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("m,d,tile,blocks", [
+    (16384, 2048, 512, 132),  # the Wd slab (16 rows of 16 KB) is over the budget
+    (512, 4096, 512, 132),  # D beyond the registers of phase 1
+    (1536, 256, 768, 132),  # tile_m not a power of two
+    (2048, 256, 1024, 132),  # tile_m beyond 16 values per lane
+    (1024, 2048, 512, 1),  # 2048 slab rows in one block
+    (1000, 256, 500, 132),  # tile_m no multiple of 16
+    (1024, 100, 512, 132),  # D no multiple of 16
+])
+def test_fused_mlp_plan_refuses_what_does_not_fit(m, d, tile, blocks):
+    with pytest.raises(ValueError):
+        mlp.fused_mlp_plan(m, d, tile, blocks)
+
+
+def test_fused_mlp_plan_constants_are_the_compiled_ones():
+    """The plan's limits are csrc/fused_mlp.cu's: the shared-memory budget,
+    16 act values per lane, 4 pieces of 16 bytes of a row per lane, one
+    thread per slab row, two counters."""
+    import re
+    from pathlib import Path
+
+    src = (Path(mlp.__file__).resolve().parent.parent / "csrc" / "fused_mlp.cu").read_text()
+
+    def constant(name):
+        return eval(re.search(rf"constexpr int {name} = ([\d *]+);", src).group(1))
+
+    assert constant("SMEM_BUDGET") == mlp.SMEM_BUDGET
+    assert constant("MAX_TILE") == mlp.MAX_TILE
+    assert constant("MAX_C") * 512 == mlp.MAX_D
+    assert constant("WARPS") * 32 == mlp.MAX_SLAB_ROWS
+    assert "ROWS_OUT = 0, TICKETS = 1;" in src and mlp.COUNTERS == 2
