@@ -73,7 +73,23 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
 15. the server at `--prec q4_k --max-batch 8` answering 8 concurrent 10 s
    requests over HTTP: q4_matmul at 8 rows on every product of the batched
    step;
-16. the kernels that one q4k_matvec call puts on the device (torch.profiler:
+16. the server from `--timestamp` (int4, 8 rows, the 0.6B aligner at int4):
+   8 concurrent 10 s requests as verbose_json and srt and the 50.2 s clip,
+   aligned on the continuous batcher's align pool; items on every answer
+   with text, in order and in bounds; q4k_matmul_rows on every product of a
+   batched step;
+17. the server at `--batch-mode micro`, at the default `--prec int4` (served
+   at int8) and at `--prec q4_k`: 8 concurrent 10 s requests through the
+   MicroBatcher, each batched row's tokens against the engine's greedy
+   tokens by the near-tie rule; at int8 one batched rows step at 2 and 8
+   rows through torch._int_mm, bit-equal to the exact f64 route, both timed;
+18. QwenASREngine at precision "bf16" on a 1.7B f16 GGUF (its own directory
+   under .bench_cache/torch/): kernel 4 once per layer per decode step, timed
+   as phase 12, and the step check against the plain attention;
+19. `cli/transcribe.py` with `--timestamp` on a wav of the 50.2 s clip: its
+   .txt, .srt and .json, the items in order and in bounds, kernels 1, 2 and 4
+   launched;
+20. the kernels that one q4k_matvec call puts on the device (torch.profiler:
    one) and one q4k_matvec_normed call (one: the rms_norm is in its
    prologue), at each decode shape, and one fused_mlp_matvec call (one
    cooperative launch) at both MLP shapes: last, so that no profiler session
@@ -90,6 +106,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -674,12 +691,16 @@ def wav_bytes(audio) -> bytes:
     return buf.getvalue()
 
 
-def post_transcription(url: str, audio, response_format: str) -> tuple[int, str, float]:
-    """(status, body, seconds) of one multipart POST."""
+def post_transcription(url: str, audio, response_format: str,
+                       temperature: str | None = None) -> tuple[int, str, float]:
+    """(status, body, seconds) of one multipart POST (no temperature field:
+    the server's 0.4)."""
     import urllib.request
 
     bd = "chipsmokeboundary"
     fields = {"response_format": response_format, "language": "zh"}
+    if temperature is not None:
+        fields["temperature"] = temperature
     body = (f'--{bd}\r\nContent-Disposition: form-data; name="file"; filename="a.wav"\r\n'
             "Content-Type: audio/wav\r\n\r\n").encode() + wav_bytes(audio)
     for name, value in fields.items():
@@ -701,6 +722,40 @@ def get_json(url: str) -> dict:
         return json.loads(r.read())
 
 
+class HttpServer:
+    """The port's server, built by its CLI's build function from `argv` with
+    engine settings overridden, on a local port for the `with` block."""
+
+    def __init__(self, argv: list, **engine_config):
+        from qwen3_asr_gguf_tpu_torch.cli import serve
+
+        self.serve = serve
+        t0 = time.time()
+        self.server, self.engine, self.batcher = serve.build(argv, **engine_config)
+        self.init_s = time.time() - t0
+
+    def __enter__(self):
+        from http.server import ThreadingHTTPServer
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), self.serve.make_handler(self.server))
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        require(get_json(f"{self.url}/health") == {"status": "ok"}, "/health")
+        return self
+
+    def post_all(self, jobs: list, temperature: str | None = None) -> list:
+        """(status, body, seconds) of concurrent POSTs of (audio, format)."""
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            return list(pool.map(lambda j: post_transcription(self.url, *j, temperature),
+                                 jobs))
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        if self.batcher is not None:
+            self.batcher.close()
+
+
 def serve_phase(torch, dev, model_dir: Path, prec: str = "int4",
                 requests: int = SERVE_REQUESTS, long_request: bool = True) -> dict:
     """The port's server, built by its CLI from real arguments, on HTTP:
@@ -708,25 +763,16 @@ def serve_phase(torch, dev, model_dir: Path, prec: str = "int4",
     `long_request`, one 50.2 s request (two chunks with memory through
     successive rows). At "int4" every batched product is q4k_matmul_rows, at
     "q4_k" it is q4_matmul at `--max-batch` rows."""
-    from http.server import ThreadingHTTPServer
-
     from qwen3_asr_gguf_tpu_torch.cli import serve
     from qwen3_asr_gguf_tpu_torch.ops import attn, q4k, qmm
 
     argv = ["--model-dir", str(model_dir), "--prec", prec, "--max-batch", "8", "--n-ctx", "2048",
             "--chunk-size", "40", "--device", str(dev)]
     rows_kernel = {"int4": q4k.q4k_matmul_rows, "q4_k": qmm.q4_matmul}[prec]
-    t0 = time.time()
     # the engine settings of the asr phase: random weights would decode 512 tokens
-    server, engine, batcher = serve.build(argv, max_new_tokens=96, decode_block=96)
-    init_s = time.time() - t0
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(server))
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{httpd.server_address[1]}"
-    try:
-        require(get_json(f"{url}/health") == {"status": "ok"}, "/health")
-        models = get_json(f"{url}/v1/models")
+    with HttpServer(argv, max_new_tokens=96, decode_block=96) as srv:
+        engine, batcher, init_s = srv.engine, srv.batcher, srv.init_s
+        models = get_json(f"{srv.url}/v1/models")
         require(models["data"][0]["id"] == serve.MODEL_NAME, f"/v1/models: {models}")
         jobs = [(tone(SERVE_CLIP_SECONDS, 200 + 50 * (i % 8)), "json" if i % 2 else "text")
                 for i in range(requests)]
@@ -737,8 +783,7 @@ def serve_phase(torch, dev, model_dir: Path, prec: str = "int4",
             counter.launches = 0
         blocks0 = batcher.stats["n_blocks"]
         t0 = time.time()
-        with ThreadPoolExecutor(len(jobs)) as pool:
-            results = list(pool.map(lambda j: post_transcription(url, *j), jobs))
+        results = srv.post_all(jobs)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {"q4k_matmul_rows": q4k.q4k_matmul_rows.launches,
@@ -746,11 +791,7 @@ def serve_phase(torch, dev, model_dir: Path, prec: str = "int4",
                     "q4k_matvec_normed": q4k.q4k_matvec_normed.launches,
                     "gqa_rows_q8_attention": attn.gqa_rows_q8_attention.launches,
                     "q4_matmul": qmm.q4_matmul.launches}
-        stats = get_json(f"{url}/stats")
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        batcher.close()
+        stats = get_json(f"{srv.url}/stats")
     texts = []
     for (audio, fmt), (status, body, _) in zip(jobs, results):
         require(status == 200, f"POST answered {status}: {body[:200]}")
@@ -774,7 +815,7 @@ def serve_phase(torch, dev, model_dir: Path, prec: str = "int4",
         require(launches["q4_matmul"] == per_step * steps + len(jobs),
                 f"serve_q4_k: {launches['q4_matmul']} q4_matmul launches for {steps} steps "
                 f"({per_step} each) and {len(jobs)} one-chunk requests")
-    del server, engine, batcher
+    del srv, engine, batcher
     torch.cuda.empty_cache()
     return row
 
@@ -947,7 +988,8 @@ class StepCounter:
     wrapping the decoder's functions (the runtime calls them through the
     module), independently of the kernels' own launch counts."""
 
-    NAMES = ("forward_step_layers", "forward_prefill", "forward_prefill_at", "lm_logits")
+    NAMES = ("forward_step_layers", "forward_step_rows", "forward_prefill", "forward_prefill_at",
+             "lm_logits")
 
     def __enter__(self):
         from qwen3_asr_gguf_tpu_torch.models import decoder as dec
@@ -1244,13 +1286,14 @@ def synthetic_clip(seconds: float):
     return (np.sin(2 * np.pi * 220 * t) * np.sin(2 * np.pi * 3 * t) * 0.3).astype(np.float32)
 
 
-def decode_step_check(torch, engine) -> None:
-    """One decode step through the kernels (the int4 matvecs and the decode
-    attention) vs the same step on dense dequantized bf16 weights with the
-    plain attention, from the same prefilled cache."""
+def decode_step_check(torch, engine, phase: str = "decode_step_check") -> None:
+    """One decode step through the kernels (the int4 matvecs, or cuBLAS on a
+    dense bf16 decoder, and the decode attention) vs the same step on dense
+    (dequantized) bf16 weights with the plain attention, from the same
+    prefilled cache."""
     from qwen3_asr_gguf_tpu_torch.models import decoder as dec
     from qwen3_asr_gguf_tpu_torch.ops import attn
-    from qwen3_asr_gguf_tpu_torch.ops.q4k import dequant_mxu
+    from qwen3_asr_gguf_tpu_torch.ops.q4k import Q4KWeight, dequant_mxu
 
     gen = engine.generator
     cfg = gen.cfg
@@ -1273,17 +1316,19 @@ def decode_step_check(torch, engine) -> None:
                                          64, attn_window=256)
     finally:
         attn.gqa_decode_attention = fast
+    head = gen.params["lm_head"]
     lk = dec.lm_logits(gen.params, h_k, cfg.vocab_size)
-    ld = dec.lm_logits({"lm_head": dequant_mxu(gen.params["lm_head"])}, h_d, cfg.vocab_size)
+    ld = dec.lm_logits({"lm_head": dequant_mxu(head) if isinstance(head, Q4KWeight) else head},
+                       h_d, cfg.vocab_size)
     cos = torch.nn.functional.cosine_similarity(lk, ld, dim=0).item()
     finite = bool(torch.isfinite(lk).all())
-    emit({"phase": "decode_step_check", "logits": list(lk.shape), "finite": finite,
+    emit({"phase": phase, "logits": list(lk.shape), "finite": finite,
           "cosine_kernel_vs_dense": cos, "bound": STEP_COSINE_BOUND,
           "decode_attention_launches": kernel_attn})
-    require(finite and lk.shape == (cfg.vocab_size,), "decode-step logits malformed")
+    require(finite and lk.shape == (cfg.vocab_size,), f"{phase}: logits malformed")
     require(kernel_attn == cfg.num_layers,
-            f"decode step: {kernel_attn} decode-attention launches, want one per layer")
-    require(cos >= STEP_COSINE_BOUND, f"decode step: cosine {cos} < {STEP_COSINE_BOUND}")
+            f"{phase}: {kernel_attn} decode-attention launches, want one per layer")
+    require(cos >= STEP_COSINE_BOUND, f"{phase}: cosine {cos} < {STEP_COSINE_BOUND}")
 
 
 ALIGN_CHECK_TEXT = "the quick brown fox jumps over the lazy dog near the bank"  # 12 words
@@ -1361,19 +1406,13 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
 
 
-def batcher_vs_engine_phase(torch, engine, audio) -> dict:
-    """The engine's greedy text (kernels 1, 2 and 4) against a
-    ContinuousBatcher's at max_batch 8 (kernel 3, the rows step) on one full
-    40 s chunk, BATCH_NEW_TOKENS new tokens (below the breaker's 16). Where
-    the tokens part, the engine's top-2 logit margin at the first differing
-    step must be within 2 bf16 ulp (a near-tie: the kernels sum in other
-    orders). Then `max_batch` 4 runs 8 rows, so every product of a batched
-    step is kernel 3 (4 x layers + 1 launches per step), and 72 is refused."""
+def greedy_engine_tokens(torch, engine, audio):
+    """(result, tokens, [top1, top2, argmax] per LM-head product) of the
+    engine's greedy call on one chunk of at most 40 s, aligner off, with
+    BATCH_NEW_TOKENS new tokens in one decode block (below the breaker's
+    16-token window, so no random retry)."""
     from qwen3_asr_gguf_tpu_torch.models import decoder as dec
-    from qwen3_asr_gguf_tpu_torch.ops import q4k
-    from qwen3_asr_gguf_tpu_torch.runtime.continuous import ContinuousBatcher
 
-    chunk = audio[: 40 * 16_000]
     gen = engine.generator
     saved = engine.aligner, engine.config.max_new_tokens, gen.block
     engine.aligner, engine.config.max_new_tokens, gen.block = None, BATCH_NEW_TOKENS, BATCH_NEW_TOKENS
@@ -1386,12 +1425,50 @@ def batcher_vs_engine_phase(torch, engine, audio) -> dict:
 
     dec.lm_logits = recording
     try:
-        res = engine.asr(chunk, context="", language="Chinese", temperature=0.0,
+        res = engine.asr(audio, context="", language="Chinese", temperature=0.0,
                          chunk_size_sec=40.0)
     finally:
         dec.lm_logits = inner
         engine.aligner, engine.config.max_new_tokens, gen.block = saved
-    engine_tokens = [row[2] for row in logits]
+    return res, [row[2] for row in logits], logits
+
+
+def near_tie_verdict(phase: str, engine_text: str, engine_tokens: list, logits: list,
+                     other_text: str, other_tokens: list) -> dict:
+    """The batched-against-engine rule: equal tokens give equal texts, and
+    where the tokens part, the engine's top-2 logit margin at the first
+    differing step is within 2 bf16 ulp (a near-tie: the kernels sum in
+    other orders). Raises otherwise; returns the verdict's fields."""
+    n = min(len(engine_tokens), len(other_tokens), BATCH_NEW_TOKENS)
+    first = next((i for i in range(n) if engine_tokens[i] != other_tokens[i]), None)
+    row = {"texts_equal": engine_text == other_text, "tokens_compared": n,
+           "first_differing_step": first}
+    if first is not None:
+        top1, top2, _ = logits[first]
+        row.update(engine_top2_margin=top1 - top2, engine_top1=top1,
+                   margin_limit=2 * bf16_ulp(top1))
+    require(n > 0 and engine_text and other_text, f"{phase}: no tokens")
+    require(first is not None or engine_text == other_text,
+            f"{phase}: equal tokens but different texts")
+    require(first is None or row["engine_top2_margin"] <= row["margin_limit"],
+            f"{phase}: tokens part at step {first} with a margin of "
+            f"{row.get('engine_top2_margin')} (more than 2 bf16 ulp)")
+    return row
+
+
+def batcher_vs_engine_phase(torch, engine, audio) -> dict:
+    """The engine's greedy text (kernels 1, 2 and 4) against a
+    ContinuousBatcher's at max_batch 8 (kernel 3, the rows step) on one full
+    40 s chunk, BATCH_NEW_TOKENS new tokens (below the breaker's 16). Where
+    the tokens part, the engine's top-2 logit margin at the first differing
+    step must be within 2 bf16 ulp (a near-tie: the kernels sum in other
+    orders). Then `max_batch` 4 runs 8 rows, so every product of a batched
+    step is kernel 3 (4 x layers + 1 launches per step), and 72 is refused."""
+    from qwen3_asr_gguf_tpu_torch.ops import q4k
+    from qwen3_asr_gguf_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    chunk = audio[: 40 * 16_000]
+    res, engine_tokens, logits = greedy_engine_tokens(torch, engine, chunk)
 
     class Recording(ContinuousBatcher):
         def _retire(self, row_idx):
@@ -1404,22 +1481,10 @@ def batcher_vs_engine_phase(torch, engine, audio) -> dict:
         batch_tokens = cb.tokens_seen
     finally:
         cb.close()
-    n = min(len(engine_tokens), len(batch_tokens), BATCH_NEW_TOKENS)
-    first = next((i for i in range(n) if engine_tokens[i] != batch_tokens[i]), None)
     row = {"phase": "batcher_vs_engine", "audio_s": len(chunk) / 16_000,
            "new_tokens": BATCH_NEW_TOKENS, "engine_text": res.text, "batcher_text": got.text,
-           "texts_equal": res.text == got.text, "tokens_compared": n,
-           "first_differing_step": first}
-    if first is not None:
-        top1, top2, _ = logits[first]
-        row.update(engine_top2_margin=top1 - top2, engine_top1=top1,
-                   margin_limit=2 * bf16_ulp(top1))
-    require(n > 0 and res.text and got.text, "batcher_vs_engine: no tokens")
-    require(first is not None or res.text == got.text,
-            "batcher_vs_engine: equal tokens but different texts")
-    require(first is None or row["engine_top2_margin"] <= row["margin_limit"],
-            f"batcher_vs_engine: tokens part at step {first} with a margin of "
-            f"{row.get('engine_top2_margin')} (more than 2 bf16 ulp)")
+           **near_tie_verdict("batcher_vs_engine", res.text, engine_tokens, logits, got.text,
+                              batch_tokens)}
 
     # max_batch 4: whole 8-row tiles on the card; above 64 rows refused
     try:
@@ -1442,6 +1507,360 @@ def batcher_vs_engine_phase(torch, engine, audio) -> dict:
     require(refused, "max_batch 72 was not refused")
     require(rows == 8 and steps > 0 and launches == per_step * steps,
             f"max_batch 4: {rows} rows, {launches} q4k_matmul_rows launches for {steps} steps")
+    return row
+
+SRT_CUE = re.compile(r"(\d+):(\d+):(\d+),(\d+) --> (\d+):(\d+):(\d+),(\d+)")
+
+
+def answer_items(fmt: str, body: str) -> tuple[str, list]:
+    """(text, [(start, end)]) of a verbose_json or srt answer."""
+    if fmt == "verbose_json":
+        out = json.loads(body)
+        return out["text"], [(w["start"], w["end"]) for w in out["words"]]
+
+    def sec(h, m, s, ms):
+        return int(h) * 3600 + int(m) * 60 + int(s) + int(ms) / 1000.0
+
+    cues = [(sec(*m.groups()[:4]), sec(*m.groups()[4:])) for m in SRT_CUE.finditer(body)]
+    text = "".join(line for line in body.splitlines()
+                   if line.strip() and not line.strip().isdigit() and " --> " not in line)
+    return text, cues
+
+
+def serve_timestamp_phase(torch, dev, model_dir: Path) -> dict:
+    """The server from `--timestamp` (int4, continuous batching, 8 rows, the
+    0.6B aligner at int4 beside the decoder): 8 concurrent 10 s requests as
+    verbose_json and srt, a 3 s one and the 50.2 s clip as verbose_json,
+    aligned on the batcher's align pool. Every answer with text must carry
+    items (a failed alignment degrades to none, so a swallowed failure fails
+    here), inside [0, clip end + 320 s] (random weights pick any of the 4000
+    classes), starts in order; every product of a batched step is
+    q4k_matmul_rows. The 3 s request's conv features (39 rows) go through
+    q4_matmul in both int4 encoders, which must launch."""
+    from qwen3_asr_gguf_tpu_torch.ops import q4k, qmm
+    from qwen3_asr_gguf_tpu_torch.runtime.aligner import STEP_MS, TIMESTAMP_CLASSES
+
+    t_phase = time.time()
+    argv = ["--model-dir", str(model_dir), "--prec", "int4", "--max-batch", "8", "--n-ctx",
+            "2048", "--chunk-size", "40", "--device", str(dev), "--timestamp"]
+    jobs = [(tone(SERVE_CLIP_SECONDS, 200 + 50 * i), "srt" if i % 2 else "verbose_json")
+            for i in range(8)] + [(tone(3.0, 620.0), "verbose_json"),
+                                  (synthetic_clip(CLIP_SECONDS), "verbose_json")]
+    with HttpServer(argv, max_new_tokens=96, decode_block=96) as srv:
+        require(srv.batcher.supports_timestamps, "the batcher takes no timestamps")
+        blocks0 = srv.batcher.stats["n_blocks"]
+        q4k.q4k_matmul_rows.launches = qmm.q4_matmul.launches = 0
+        t0 = time.time()
+        results = srv.post_all(jobs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches, qmm_launches = q4k.q4k_matmul_rows.launches, qmm.q4_matmul.launches
+        stats = get_json(f"{srv.url}/stats")
+        steps = (stats["batching"]["n_blocks"] - blocks0) * srv.batcher.block
+        layers, init_s = srv.engine.dec_cfg.num_layers, srv.init_s
+    n_items = []
+    for (audio, fmt), (status, body, _) in zip(jobs, results):
+        require(status == 200, f"POST answered {status}: {body[:200]}")
+        text, items = answer_items(fmt, body)
+        latest = len(audio) / 16_000 + TIMESTAMP_CLASSES * STEP_MS / 1000.0
+        require(not text or items, f"a {fmt} answer with text and no items")
+        require([a for a, _ in items] == sorted(a for a, _ in items), "starts out of order")
+        require(all(0.0 <= a <= b <= latest for a, b in items),
+                f"items outside [0, {latest}]: {items[:4]}")
+        n_items.append(len(items))
+    per_step = 4 * layers + 1
+    row = {"phase": "serve_timestamp", "argv": argv, "engine_init_s": init_s,
+           "requests": len(jobs), "formats": [f for _, f in jobs], "wall_s": wall,
+           "audio_s": sum(len(a) for a, _ in jobs) / 16_000, "items_or_srt_cues": n_items,
+           "batcher": stats["batching"], "decode_steps": steps,
+           "q4k_matmul_rows_launches": launches, "q4_matmul_launches": qmm_launches,
+           "rows_matmul_launches_per_step": launches / max(steps, 1),
+           "seconds": time.time() - t_phase}
+    emit(row)
+    require(sum(n_items) > 0, "no aligned items at all")
+    require(qmm_launches > 0, "serve_timestamp: q4_matmul never launched on the short request")
+    require(steps > 0 and launches == per_step * steps,
+            f"serve_timestamp: {launches} q4k_matmul_rows launches for {steps} steps "
+            f"({per_step} each)")
+    torch.cuda.empty_cache()
+    return row
+
+
+def int8_rows_route(torch, engine) -> dict:
+    """One batched int8 rows step (forward_step_rows on Int8Weight products)
+    at 2 and 8 rows: every product goes through torch._int_mm (the rows
+    zero-padded to INT_MM_MIN_ROWS), its logits bit-equal to the exact f64
+    route's, and the ms per step of each (host clock, after a warm-up)."""
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+    from qwen3_asr_gguf_tpu_torch.ops import qtensor as qt
+
+    params, cfg, dev = engine.generator.prefill_params, engine.dec_cfg, engine.device
+    per_step = 4 * cfg.num_layers + 1
+    out = {}
+    for b in (2, 8):
+        caches = dec.init_cache(cfg, 256, torch.bfloat16, device=dev, rows=b)
+        twin = {k: [c.clone() for c in v] for k, v in caches.items()}
+        embd = params["embed"][torch.arange(1, b + 1, device=dev)]
+        poss = torch.arange(b, device=dev) * 7
+
+        def step(kv):
+            h, _ = dec.forward_step_rows(params["layers"], params["final_norm"], cfg, embd, kv,
+                                         poss, attn_window=256)
+            return dec.lm_logits(params, h, cfg.lm_head_dim)
+
+        def ms(kv, n=8):
+            step(kv)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(n):
+                step(kv)
+            torch.cuda.synchronize()
+            return (time.time() - t0) * 1e3 / n
+
+        calls, int_mm = [], torch._int_mm
+        torch._int_mm = lambda a, w: calls.append(a.shape[0]) or int_mm(a, w)
+        try:
+            got = step(caches)
+        finally:
+            torch._int_mm = int_mm
+        ms_int_mm = ms(caches)
+        fast = qt.int8_dot
+        qt.int8_dot = lambda xq, wq: torch.matmul(xq.double(), wq.double().T).float()
+        try:
+            want = step(twin)
+            ms_f64 = ms(twin)
+        finally:
+            qt.int8_dot = fast
+        out[b] = {"int_mm_calls": len(calls), "int_mm_rows": sorted(set(calls)),
+                  "bit_equal": bool(torch.equal(got, want)),
+                  "finite": bool(torch.isfinite(got).all()),
+                  "ms_per_step_int_mm": ms_int_mm, "ms_per_step_f64": ms_f64}
+    emit({"phase": "int8_rows_route", "rows": out, "min_rows": qt.INT_MM_MIN_ROWS})
+    for b, r in out.items():
+        require(r["int_mm_calls"] == per_step and r["int_mm_rows"] == [qt.INT_MM_MIN_ROWS],
+                f"int8 rows step at {b} rows: {r['int_mm_calls']} torch._int_mm calls at "
+                f"{r['int_mm_rows']} rows, want {per_step} at {qt.INT_MM_MIN_ROWS}")
+        require(r["bit_equal"] and r["finite"], f"int8 rows step at {b} rows: _int_mm != f64")
+    return out
+
+
+def serve_micro_phase(torch, dev, model_dir: Path, prec: str = "int4") -> dict:
+    """`--batch-mode micro` at `--prec int4` (served at int8, as in the JAX
+    package) or `q4_k`: 8 concurrent 10 s requests over HTTP at temperature
+    1e-6 (the server maps 0 to 0.4), then the same PCM submitted to the
+    MicroBatcher at temperature 0, BATCH_NEW_TOKENS new tokens each. The
+    greedy round is the one compared: its argmax takes the first of tied
+    maxima, as the engine's does, where 1e-6 draws between them. A lone
+    request runs on the engine and must give the engine's greedy text. Each
+    batched row's tokens are held to the engine's greedy tokens by the
+    near-tie rule, with the engine's step in the rows step's math: the plain
+    attention (a bf16 rows step has no attention kernel, in the JAX package
+    either; kernel 4 rounds its probabilities against a running max) and, at
+    int8, fused_mlp=False (the rows step quantizes the MLP's act per row,
+    kernel 7 per 512-column tile). At q4_k every product of a batched step is
+    q4_matmul at the batch's rows."""
+    import hashlib
+
+    from qwen3_asr_gguf_tpu_torch.audio.io import load_audio
+    from qwen3_asr_gguf_tpu_torch.ops import attn, mlp, qmm
+    from qwen3_asr_gguf_tpu_torch.runtime.generate import Generator
+
+    t_phase = time.time()
+    name = "serve_micro" if prec == "int4" else f"serve_micro_{prec}"
+    argv = ["--model-dir", str(model_dir), "--prec", prec, "--batch-mode", "micro",
+            "--batch-window", "0.25", "--max-batch", "8", "--n-ctx", "2048", "--chunk-size",
+            "40", "--device", str(dev)]
+    audios = [tone(SERVE_CLIP_SECONDS, 200 + 50 * i) for i in range(8)]
+    heard = [load_audio(wav_bytes(a)) for a in audios]  # what the server transcribes
+    jobs = [(a, "json") for a in audios]
+    wrappers = (qmm.q4_matmul, mlp.fused_mlp_matvec, attn.gqa_decode_attention)
+
+    def key(audio) -> str:
+        return hashlib.sha1(audio.tobytes()).hexdigest()
+
+    with HttpServer(argv, max_new_tokens=BATCH_NEW_TOKENS, decode_block=BATCH_NEW_TOKENS) as srv:
+        engine, batcher = srv.engine, srv.batcher
+        gen, run_batch = batcher.batched.gen, batcher._run_batch
+        batches, timings, generate = [], [], gen.generate
+
+        def recording_batch(batch):
+            batches.append([key(p.audio) for p in batch])
+            return run_batch(batch)
+
+        def recording_generate(*args, **kw):
+            t0 = time.time()
+            rows = generate(*args, **kw)
+            timings.append(time.time() - t0)
+            batches[-1] = dict(zip(batches[-1], rows))
+            return rows
+
+        batcher._run_batch, gen.generate = recording_batch, recording_generate
+        for w in wrappers:
+            w.launches = 0
+        with StepCounter() as counter:
+            t0 = time.time()
+            results = srv.post_all(jobs, temperature="0.000001")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+        stats = get_json(f"{srv.url}/stats")
+        init_s, served = srv.init_s, list(batches)
+        batches.clear()
+        with ThreadPoolExecutor(len(heard)) as pool:
+            greedy = list(pool.map(
+                lambda a: batcher.submit(a, language="Chinese", temperature=0.0), heard))
+    for status, body, _ in results:
+        require(status == 200 and json.loads(body)["text"], f"POST answered {status}: {body[:200]}")
+    tokens = {k: v for b in batches for k, v in b.items()}
+    row = {"phase": name, "argv": argv, "precision": engine.config.precision,
+           "engine_init_s": init_s, "requests": len(jobs), "wall_s": wall,
+           "audio_s": len(jobs) * SERVE_CLIP_SECONDS, "batches": stats["batches"],
+           "batched_requests": stats["batched_requests"],
+           "batch_widths": [len(b) for b in served], "rows_steps": counter.n["forward_step_rows"],
+           "generate_s": timings, "launches": launches,
+           "greedy_batch_widths": [len(b) for b in batches]}
+    require(stats["batches"] >= 1, f"{name}: no micro batch formed")
+    if prec == "q4_k":
+        require(launches["q4_matmul"] > 0, f"{name}: q4_matmul never launched")
+    lone = [(a, res.text) for a, res in zip(heard, greedy) if key(a) not in tokens]
+    for audio, text in lone:  # ran on the engine as it serves
+        require(text == greedy_engine_tokens(torch, engine, audio)[0].text,
+                f"{name}: a lone request's text differs from the engine's")
+    gen0, fast = engine.generator, attn.gqa_decode_attention
+    if gen0.fused_mlp:
+        engine.generator = Generator(gen0.params, gen0.cfg, n_ctx=gen0.n_ctx,
+                                     eos_ids=tuple(gen0.eos_ids), block=gen0.block,
+                                     cache_dtype=gen0.cache_dtype, fused_mlp=False, device=dev)
+    attn.gqa_decode_attention = attn.gqa_decode_attention_ref
+    verdicts = []
+    try:
+        for audio, res in zip(heard, greedy):
+            if key(audio) in tokens:
+                want, engine_tokens, logits = greedy_engine_tokens(torch, engine, audio)
+                verdicts.append(near_tie_verdict(name, want.text, engine_tokens, logits, res.text,
+                                                 tokens[key(audio)]))
+    finally:
+        attn.gqa_decode_attention, engine.generator = fast, gen0
+    row["compared_with"] = {"fused_mlp": False, "attention": "plain", "lone": len(lone),
+                            "rows_equal": sum(v["first_differing_step"] is None
+                                              for v in verdicts), "verdicts": verdicts}
+    if engine.config.precision == "int8":
+        row["int8_rows_route"] = int8_rows_route(torch, engine)
+    row["seconds"] = time.time() - t_phase
+    emit(row)
+    del engine, batcher, srv
+    torch.cuda.empty_cache()
+    return row
+
+
+def ensure_half_checkpoint() -> Path:
+    """A random-weight qwen3-asr-1.7b with an f16 GGUF decoder, in a
+    directory of its own beside the q4_k checkpoint."""
+    from qwen3_asr_gguf_tpu_torch.export.synthetic import make_synthetic_checkpoint
+
+    out = REPO / ".bench_cache" / "torch" / f"{PRESET}-f16"
+    t0 = time.time()
+    built = not (out / "qwen3_asr_llm.f16.gguf").exists()
+    if built:
+        make_synthetic_checkpoint(str(out), PRESET, quant="f16", seed=0)
+    emit({"phase": "checkpoint_f16", "preset": PRESET, "built": built,
+          "seconds": time.time() - t0})
+    return out
+
+
+def asr_bf16_phase(torch, dev) -> dict:
+    """QwenASREngine at precision "bf16" on the f16 GGUF (the encoder rounded
+    f32 -> f16 -> bf16): every decode product is one cuBLAS call on the dense
+    bf16 weights and the attention is kernel 4, 28 launches per step; timed
+    as asr_int8 (aligner off), with the step check against the plain
+    attention."""
+    from qwen3_asr_gguf_tpu_torch import ASREngineConfig, QwenASREngine
+    from qwen3_asr_gguf_tpu_torch.ops import attn
+
+    t_phase = time.time()
+    model_dir = ensure_half_checkpoint()
+    t0 = time.time()
+    engine = QwenASREngine(ASREngineConfig(
+        model_dir=str(model_dir), llm_fn="qwen3_asr_llm.f16.gguf", precision="bf16",
+        n_ctx=2048, chunk_size=40.0, memory_num=1, verbose=False, max_new_tokens=96,
+        decode_block=96, kv_prefix_reuse=True, kv_cache_dtype="bf16", enable_aligner=False,
+    ), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    layer = engine.generator.params["layers"][0]
+    require(layer["qkv_proj"].dtype == torch.bfloat16, "the bf16 decoder is not dense bf16")
+    require(engine.encoder.params["proj1_w"].dtype == torch.bfloat16, "encoder not bf16")
+    audio = synthetic_clip(CLIP_SECONDS)
+    engine.asr(audio, context="", language="Chinese", temperature=0.4)  # warm-up
+    row = {"phase": "asr_bf16", "engine_init_s": init_s,
+           "gpu_mem_gb": torch.cuda.memory_allocated(dev) / 1e9,
+           **timed_precision_asr(torch, engine, audio, (attn.gqa_decode_attention,))}
+    layers = engine.dec_cfg.num_layers
+    row["seconds"] = time.time() - t_phase
+    emit(row)
+    require(row["launches"]["gqa_decode_attention"] == layers * row["decode_steps"],
+            f"asr_bf16: {row['launches']['gqa_decode_attention']} decode attention launches "
+            f"for {row['decode_steps']} steps of {layers} layers")
+    decode_step_check(torch, engine, "bf16_step_check")
+    del engine
+    torch.cuda.empty_cache()
+    return row
+
+
+def transcribe_cli_phase(torch, dev, model_dir: Path) -> dict:
+    """`cli/transcribe.py main([...])` at its defaults (int4, 40 s chunks,
+    temperature 0.4) with `--timestamp` on a wav of the 50.2 s clip: the
+    .txt, .srt and .json it writes, the .json's items in order and in bounds,
+    and the headline path's kernels (1, 2, 4) launched. The CLI has no
+    token-budget flag; the engine's max_new_tokens and decode_block are the
+    asr phase's 96, set in the port's schema default for this call."""
+    import dataclasses
+
+    from qwen3_asr_gguf_tpu_torch import schema
+    from qwen3_asr_gguf_tpu_torch.cli import transcribe
+    from qwen3_asr_gguf_tpu_torch.ops import attn, q4k
+    from qwen3_asr_gguf_tpu_torch.runtime.aligner import STEP_MS, TIMESTAMP_CLASSES
+
+    t_phase = time.time()
+    work = REPO / ".bench_cache" / "torch" / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    (work / "clip.wav").write_bytes(wav_bytes(synthetic_clip(CLIP_SECONDS)))
+    wrappers = (q4k.q4k_matvec, q4k.q4k_matvec_normed, attn.gqa_decode_attention)
+    for w in wrappers:
+        w.launches = 0
+
+    @dataclasses.dataclass
+    class Config(schema.ASREngineConfig):
+        max_new_tokens: int = 96
+        decode_block: int = 96
+
+    saved, schema.ASREngineConfig = schema.ASREngineConfig, Config
+    try:
+        rc = transcribe.main([str(work / "clip.wav"), "--model-dir", str(model_dir),
+                              "--timestamp", "--output-dir", str(work / "out"), "--quiet", "-y",
+                              "--device", str(dev)])
+    finally:
+        schema.ASREngineConfig = saved
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    files = {s: work / "out" / f"clip{s}" for s in (".txt", ".srt", ".json")}
+    require(rc == 0, f"transcribe.main returned {rc}")
+    require(all(f.exists() for f in files.values()), f"missing outputs: {files}")
+    items = json.loads(files[".json"].read_text(encoding="utf-8"))
+    latest = CLIP_SECONDS + TIMESTAMP_CLASSES * STEP_MS / 1000.0
+    starts = [it["start"] for it in items]
+    row = {"phase": "transcribe_cli", "rc": rc, "items": len(items),
+           "txt_chars": len(files[".txt"].read_text(encoding="utf-8").strip()),
+           "srt_cues": len(SRT_CUE.findall(files[".srt"].read_text(encoding="utf-8"))),
+           "launches": launches, "seconds": time.time() - t_phase}
+    emit(row)
+    require(items and row["txt_chars"] > 0 and row["srt_cues"] > 0, "empty CLI outputs")
+    require(starts == sorted(starts), "CLI items out of order")
+    require(all(0.0 <= it["start"] <= it["end"] <= latest for it in items),
+            "CLI items out of bounds")
+    require(all(c > 0 for c in launches.values()), f"a headline kernel never launched: {launches}")
+    torch.cuda.empty_cache()
     return row
 
 
@@ -1576,6 +1995,11 @@ def main() -> int:
     served = serve_phase(torch, dev, model_dir)
     served_int8 = serve_int8_phase(torch, dev, model_dir)
     serve_phase(torch, dev, model_dir, prec="q4_k", requests=8, long_request=False)
+    serve_timestamp_phase(torch, dev, model_dir)
+    serve_micro_phase(torch, dev, model_dir)
+    serve_micro_phase(torch, dev, model_dir, prec="q4_k")
+    asr_bf16_phase(torch, dev)
+    transcribe_cli_phase(torch, dev, model_dir)
     device_kernels_phase(torch, dev, cfg.text)
     # each kernel's launches from the run of its own path
     launches["q4k_matmul_rows"] = served["launches"]["q4k_matmul_rows"]

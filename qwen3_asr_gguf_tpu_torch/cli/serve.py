@@ -10,11 +10,15 @@ The HTTP surface is `cli/http.py` (`ASRServer`, `make_handler`,
   GET  /v1/models | /health | /stats | /demo
 
 with the port's engine and, by default (`--batch-mode continuous`,
-`--max-batch 8`), the port's `ContinuousBatcher` behind it. `--device` names
-the torch device; there is no fallback to another one. Not ported yet (each
-raises NotImplementedError, see ROADMAP.md): `--mesh`, `--batch-mode micro`
-and `--timestamp`. `--prewarm` is left out: PyTorch has no programs to load
-before traffic.
+`--max-batch 8`), the port's `ContinuousBatcher` behind it; `--batch-mode
+micro` puts a `MicroBatcher` there instead (while `--batch-window` > 0);
+outside continuous mode `--prec int4` runs at int8, as in the JAX package.
+`--timestamp` loads the forced aligner (`qwen3_aligner_*` beside the
+decoder): srt, vtt and verbose_json answers carry word times, aligned on the
+continuous batcher's align pool. `--device` names the torch device; there is
+no fallback to another one. `--mesh` is not ported yet and raises
+NotImplementedError (ROADMAP.md Queue 1, item 7). `--prewarm` is left out:
+PyTorch has no programs to load before traffic.
 """
 
 from __future__ import annotations
@@ -22,30 +26,11 @@ from __future__ import annotations
 import argparse
 import sys
 from http.server import ThreadingHTTPServer
-from pathlib import Path
 
 from .http import ASRServer, make_handler
+from .transcribe import _resolve_llm_fn
 
 MODEL_NAME = "qwen3-asr-torch"
-
-
-def _resolve_llm_fn(model_dir: str, prec: str) -> str:
-    """Precision -> decoder filename (reference transcribe.py:29-35)."""
-    candidates = {
-        "q4_k": "qwen3_asr_llm.q4_k.gguf",
-        "int4": "qwen3_asr_llm.q4_k.gguf",
-        "int8": "qwen3_asr_llm.q4_k.gguf",
-        "bf16": "qwen3_asr_llm.f16.gguf",
-        "f16": "qwen3_asr_llm.f16.gguf",
-        "f32": "qwen3_asr_llm.f32.gguf",
-    }
-    fn = candidates[prec]
-    if not Path(model_dir, fn).exists():
-        for alt in dict.fromkeys(candidates.values()):
-            if Path(model_dir, alt).exists():
-                print(f"[warn] {fn} not found; using {alt}", file=sys.stderr)
-                return alt
-    return fn
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,17 +42,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-ctx", type=int, default=2048)
     p.add_argument("--chunk-size", type=float, default=40.0)
     p.add_argument("--timestamp", action="store_true",
-                   help="enable the aligner (the server's align pool is not ported yet)")
+                   help="enable the aligner (srt/vtt/verbose_json words)")
     p.add_argument("--llm-fn", default=None)
     p.add_argument("--batch-window", type=float, default=0.05,
-                   help="micro-batch gather window seconds (micro mode, not ported yet)")
+                   help="micro-batch gather window seconds (0 disables batching)")
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--mesh", default=None,
                    help="TP-shard the decoder over a device mesh (not ported yet)")
     p.add_argument("--batch-mode", choices=["continuous", "micro", "off"],
                    default="continuous",
                    help="continuous = per-request admission into free decode rows; "
-                        "off = one request at a time on the engine")
+                        "micro = window-coalesced batches; off = one request at a time "
+                        "on the engine")
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
     return p
 
@@ -78,28 +64,35 @@ def build_from_args(args: argparse.Namespace, **engine_config):
     import torch
 
     from ..runtime.engine import QwenASREngine
-    from ..schema import ASREngineConfig
+    from ..schema import AlignerConfig, ASREngineConfig
 
     if args.mesh:
         raise NotImplementedError("--mesh: tensor-parallel serving is not ported yet "
                                   "(ROADMAP.md Queue 1, item 7)")
-    if args.timestamp:
-        raise NotImplementedError("--timestamp: the server's align pool is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 4); the engine itself aligns "
-                                  "with ASREngineConfig(enable_aligner=True)")
-    if args.batch_mode == "micro":
-        raise NotImplementedError("--batch-mode micro: MicroBatcher is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 4)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the server runs on --device "
                            f"{args.device} or not at all (pass --device cpu to choose the CPU)")
+    llm_fn = args.llm_fn or _resolve_llm_fn(args.model_dir, args.prec)
+    precision = {"f16": "bf16"}.get(args.prec, args.prec)
+    if precision == "int4" and args.max_batch > 1 and args.batch_mode != "continuous":
+        # as in the JAX package: a micro batch decodes on the prefill-side
+        # weights (dense bf16 at int4); continuous batching has a rows kernel
+        # for the int4 weights (q4k_matmul_rows) and keeps int4
+        print("[info] micro-batched serving uses precision=int8 "
+              "(use --batch-mode continuous to serve int4)", file=sys.stderr)
+        precision = "int8"
     cfg = ASREngineConfig(
-        model_dir=args.model_dir,
-        llm_fn=args.llm_fn or _resolve_llm_fn(args.model_dir, args.prec),
-        precision={"f16": "bf16"}.get(args.prec, args.prec),
+        model_dir=args.model_dir, llm_fn=llm_fn, precision=precision,
         n_ctx=args.n_ctx, chunk_size=args.chunk_size, verbose=False,
+        enable_aligner=args.timestamp,
     )
+    if args.timestamp:
+        cfg.align_config = AlignerConfig(
+            model_dir=args.model_dir, llm_fn=llm_fn.replace("asr", "aligner"),
+            encoder_fn="qwen3_aligner_encoder.safetensors", precision=precision,
+            n_ctx=args.n_ctx,
+        )
     for name, value in engine_config.items():
         setattr(cfg, name, value)
     engine = QwenASREngine(cfg, device=device)
@@ -108,6 +101,10 @@ def build_from_args(args: argparse.Namespace, **engine_config):
         from ..runtime.continuous import ContinuousBatcher
 
         batcher = ContinuousBatcher(engine, max_batch=args.max_batch)
+    elif args.max_batch > 1 and args.batch_mode == "micro" and args.batch_window > 0:
+        from ..runtime.microbatch import MicroBatcher
+
+        batcher = MicroBatcher(engine, window_s=args.batch_window, max_batch=args.max_batch)
     return ASRServer(engine, model_name=MODEL_NAME, batcher=batcher), engine, batcher
 
 

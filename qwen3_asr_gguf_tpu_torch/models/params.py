@@ -359,6 +359,15 @@ def load_encoder_safetensors(path: str, *, dtype=torch.float32, device="cpu"
     return cfg, _encoder_tree(tensors, cfg.encoder_layers)
 
 
+def load_encoder_half(path: str, *, device="cpu") -> tuple[AudioEncoderConfig, dict]:
+    """The half-precision encoder of the JAX package: every f32 value
+    rounded to f16 on the host (half the upload), then to bf16 on the
+    device. Rounding twice gives other weights than one f32 -> bf16 cast."""
+    cfg, flat = _read_encoder(path)
+    tensors = {k: _t(v.astype(np.float16), device).to(torch.bfloat16) for k, v in flat.items()}
+    return cfg, _encoder_tree(tensors, cfg.encoder_layers)
+
+
 def load_encoder_quantized(path: str, *, group: int = 32, kind: str = "int4", device="cpu"
                            ) -> tuple[AudioEncoderConfig, dict]:
     """Encoder safetensors with its matmul weights quantized: kind "int4"

@@ -165,12 +165,13 @@ def _q4_kernel_route(x: torch.Tensor) -> bool:
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
     """x [..., K] @ w.T -> [..., N]; w is Q4KWeight, Int8Weight, Q4Weight or
-    dense [N, K]."""
+    dense [N, K]. The kernels read x as dense rows: a strided x (the
+    encoder's conv features are a view) is copied first."""
     if isinstance(w, q4k.Q4KWeight):
         if q4k.supported(tuple(x.shape), w):
-            return q4k.q4k_matvec(x, w)  # decode matvec: int4 stream, exact q4_k
+            return q4k.q4k_matvec(x.contiguous(), w)  # decode matvec: int4 stream, exact q4_k
         if q4k.supported_rows(tuple(x.shape), w):
-            return q4k.q4k_matmul_rows(x, w)  # batched decode rows (serving)
+            return q4k.q4k_matmul_rows(x.contiguous(), w)  # batched decode rows (serving)
         return dense_matmul(x, q4k.dequant_mxu(w, dtype=x.dtype))
     if isinstance(w, Int8Weight):
         return int8_matmul(x, w)
@@ -178,7 +179,7 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
         shape = tuple(x.shape)
         if (_q4_kernel_route(x) and qmm.supported(shape, w)
                 and x.numel() // shape[-1] <= qmm.MAX_ROWS):
-            return qmm.q4_matmul(x, w)  # decode matvecs, short encoder inputs
+            return qmm.q4_matmul(x.contiguous(), w)  # decode matvecs, short encoder inputs
         return dense_matmul(x, dequant_q4(w, dtype=x.dtype))  # compute-bound: dequant once
     return dense_matmul(x, w)
 

@@ -19,15 +19,19 @@ Both threads queue their device work on the device's default stream, so
 a staging prefill is complete on the device before the scatter that reads
 it. The flow is synchronous: a block is fetched before the next is queued
 (the JAX package's 1-deep block pipeline is not ported; it gives the same
-tokens). Not ported (see ROADMAP.md): the tensor-parallel and vmapped
-bodies, `prewarm`, the align pool (timestamps wait for the aligner) and the
-trace switch.
+tokens). A request submitted with `timestamps=True` (on an engine with an
+aligner) is force-aligned after its last chunk on a one-thread align pool,
+chunk by chunk in the engine's windows, while the worker decodes on. Not
+ported (see ROADMAP.md): the tensor-parallel and vmapped bodies, `prewarm`
+and the trace switch.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -40,6 +44,7 @@ from ..ops.sampling import sample_rows
 from ..schema import TranscribeResult
 from .generate import prompt_bucket, round_up
 
+logger = logging.getLogger(__name__)
 SAMPLE_RATE = 16_000
 
 
@@ -62,6 +67,7 @@ class _Request:
     context: str
     language: Optional[str]
     temperature: float
+    timestamps: bool = False  # force-align the text once it is final
     rollback: int = 5  # tokens trimmed from a non-final chunk
     done_evt: threading.Event = field(default_factory=threading.Event)
     result: Optional[TranscribeResult] = None
@@ -170,6 +176,7 @@ class ContinuousBatcher:
         self._t_fetch = 0.0  # worker: waiting on a block's result
         self._n_blocks = 0
         self._n_cohorts = 0
+        self._align_pool: Optional[ThreadPoolExecutor] = None  # at the first timestamped request
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
         self._admit_thread = threading.Thread(target=self._admit_loop, daemon=True)
@@ -184,16 +191,15 @@ class ContinuousBatcher:
 
     @property
     def supports_timestamps(self) -> bool:
-        """False until the align pool is ported (ROADMAP Queue 1, item 4; the
-        forced aligner itself is)."""
-        return False
+        return self.engine.aligner is not None
 
     def submit(self, audio: np.ndarray, *, context: str = "", language: Optional[str] = None,
-               temperature: float = 0.0, timeout: float = 600.0,
+               temperature: float = 0.0, timeout: float = 600.0, timestamps: bool = False,
                rollback: int = 5) -> TranscribeResult:
         n_chunks = max(1, int(np.ceil(len(audio) / self.chunk_samples)))
         req = _Request(audio=audio, context=context, language=language,
-                       temperature=temperature, n_chunks=n_chunks, rollback=rollback)
+                       temperature=temperature, n_chunks=n_chunks,
+                       timestamps=timestamps and self.supports_timestamps, rollback=rollback)
         with self._lock:
             self._pending.append(req)
         self._admit_work.set()
@@ -211,6 +217,8 @@ class ContinuousBatcher:
         self._stage_slots.release()  # unblock an admission thread in acquire
         self._thread.join(timeout=5.0)
         self._admit_thread.join(timeout=5.0)
+        if self._align_pool is not None:
+            self._align_pool.shutdown(wait=True)
 
     @property
     def stats(self) -> dict:
@@ -490,13 +498,50 @@ class ContinuousBatcher:
             text_final, _ = parse_detect(text_final, toks)
         req.chunk_texts.append(text_final)
         self.n_completed += 1
+        text = "".join(req.chunk_texts)
+        perf = {"batched": "continuous", "n_generate": len(row.tokens), "n_chunks": req.n_chunks,
+                "latency_s": time.time() - req.submitted_at}
+        if req.timestamps:
+            # the aligner only prefills; it runs on the align pool beside the
+            # decode worker, and done_evt fires when the items land
+            if self._align_pool is None:
+                self._align_pool = ThreadPoolExecutor(max_workers=1)
+            self._align_pool.submit(self._align_request, req, text, perf)
+            return
+        req.result = TranscribeResult(text=text, performance=perf,
+                                      language=req.language or req.detected_lang or "")
+        req.done_evt.set()
+
+    def _align_request(self, req: _Request, text: str, perf: dict) -> None:
+        """Force-align each chunk's text in the engine's window
+        (`engine.align_offset`). A failure leaves the items aligned so far
+        and a warning, as in the JAX package."""
+        from ..schema import ForcedAlignResult
+        from .engine import align_offset
+
+        chunk_sec = self.chunk_samples / SAMPLE_RATE
+        duration = len(req.audio) / SAMPLE_RATE
+        items: list = []
+        prev_items: list = []
+        try:
+            for j, txt in enumerate(req.chunk_texts):
+                seg_end = min((j + 1) * chunk_sec, duration)
+                offset = align_offset(j * chunk_sec, prev_items, j * chunk_sec)
+                if not txt.strip():
+                    prev_items = []
+                    continue
+                ares = self.engine.aligner.align(
+                    req.audio[int(offset * SAMPLE_RATE): int(seg_end * SAMPLE_RATE)], txt,
+                    language=req.language or req.detected_lang or "Chinese", offset_sec=offset)
+                prev_items = list(ares.items)
+                items.extend(prev_items)
+        except Exception:
+            logger.warning("forced alignment failed in batched serving; "
+                           "timestamps degraded to empty", exc_info=True)
+        items.sort(key=lambda x: x.start_time)
         req.result = TranscribeResult(
-            text="".join(req.chunk_texts),
-            performance={"batched": "continuous", "n_generate": len(row.tokens),
-                         "n_chunks": req.n_chunks,
-                         "latency_s": time.time() - req.submitted_at},
-            language=req.language or req.detected_lang or "",
-        )
+            text=text, alignment=ForcedAlignResult(items=items) if items else None,
+            performance=perf, language=req.language or req.detected_lang or "")
         req.done_evt.set()
 
     def _process_block(self, packed: np.ndarray, snapshot: list) -> None:

@@ -18,13 +18,16 @@ Precisions: "int4" (the q4_k decoder repacked for the int4 matvec kernels,
 int4 encoder), "int8" (per-channel int8 decoder and encoder; on the card the
 decode step's MLP runs through the fused int8 kernel unless `fused_mlp=False`),
 "q4_k" (planar `Q4Weight` decoder through the fused dequant + matmul kernel,
-int4 encoder) and "f32"; KV caches bf16, f32 or int8 (`kv_cache_dtype`; an f32
-engine keeps f32 KV, as in the JAX package). With `enable_aligner`, chunk i is force-aligned as soon as its
+int4 encoder), "bf16" / "f16" (a dense bf16 decoder, whose decode step is
+cuBLAS products and the decode attention kernel, and the encoder's weights
+rounded f32 -> f16 -> bf16 as the JAX package rounds them) and "f32"; KV
+caches bf16, f32 or int8 (`kv_cache_dtype`; an f32 engine keeps f32 KV, as in
+the JAX package). With `enable_aligner`, chunk i is force-aligned as soon as its
 text is final, in the same windows and with the same offsets as the JAX
 engine's align worker (which aligns chunk i-1 while chunk i decodes; here the
 steps run one after the other and give the same items). Not ported yet (see
-ROADMAP.md): the mesh and the half-precision weights.
-`pipelined_dispatch` runs this synchronous path, which gives the same tokens.
+ROADMAP.md): the mesh. `pipelined_dispatch` runs this synchronous path, which
+gives the same tokens.
 """
 
 from __future__ import annotations
@@ -59,6 +62,16 @@ _PUNCT_NEWLINE = re.compile(r"([，。？！：,\.])")
 _KV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}
 
 
+def align_offset(start: float, prev_items, prev_end: float) -> float:
+    """Where a chunk's align window starts: where the previous chunk's last
+    aligned item ended, at most 10 s before the previous chunk's end and
+    never after it; at the chunk's own `start` when the previous chunk has
+    no items (or there is none)."""
+    if not prev_items:
+        return start
+    return min(prev_end, max(prev_items[-1].end_time, prev_end - 10.0))
+
+
 @dataclasses.dataclass
 class _Segment:
     idx: int
@@ -75,9 +88,10 @@ class QwenASREngine:
         """`fused_mlp` goes to the Generator: None turns the fused int8 MLP
         kernel on for an "int8" engine on the card and off on the CPU."""
         if config.mesh_shape:
-            raise NotImplementedError("mesh inference is not ported yet")
-        if config.precision not in ("int4", "int8", "q4_k", "f32"):
-            raise NotImplementedError(f"precision {config.precision!r} is not ported yet")
+            raise NotImplementedError("mesh inference is not ported yet "
+                                      "(ROADMAP.md Queue 1, item 7)")
+        if config.precision not in ("int4", "int8", "q4_k", "bf16", "f16", "f32"):
+            raise ValueError(f"unknown precision {config.precision!r}")
         kv_name = "f32" if config.precision == "f32" else config.kv_cache_dtype
         if kv_name not in _KV_DTYPES:
             raise NotImplementedError(f"kv_cache_dtype {kv_name!r} is not ported yet")
@@ -94,6 +108,8 @@ class QwenASREngine:
             enc_cfg, enc_params = P.load_encoder_quantized(
                 enc_path, kind="int8" if config.precision == "int8" else "int4",
                 device=self.device)
+        elif config.precision in ("bf16", "f16"):
+            enc_cfg, enc_params = P.load_encoder_half(enc_path, device=self.device)
         else:
             enc_cfg, enc_params = P.load_encoder_safetensors(enc_path, device=self.device)
         mel_path = os.path.join(model_dir, "mel_filters.npy")
@@ -104,7 +120,8 @@ class QwenASREngine:
         )
 
         dec_cfg, dec_params, tokenizer = P.load_decoder_gguf(
-            os.path.join(model_dir, config.llm_fn), precision=config.precision, device=self.device)
+            os.path.join(model_dir, config.llm_fn),
+            precision={"f16": "bf16"}.get(config.precision, config.precision), device=self.device)
         self.dec_cfg = dec_cfg
         self.model = tokenizer  # the reference LlamaModel text API
         self.generator = Generator(
@@ -397,15 +414,12 @@ class QwenASREngine:
 
         def align_window(idx: int) -> tuple[float, int, int]:
             """(offset_sec, start_sample, end_sample) of segment idx's align
-            window: it starts where segment idx-1's last aligned item ended,
-            at most 10 s before that segment's end; valid once segment
-            idx-1's items are known."""
+            window (`align_offset`); valid once segment idx-1's items are
+            known."""
             seg = segments[idx]
-            offset_sec = seg.audio_start
-            if idx > 0 and segments[idx - 1].items:
-                last_end = segments[idx - 1].items[-1].end_time
-                prev_limit = segments[idx - 1].audio_end
-                offset_sec = min(prev_limit, max(last_end, prev_limit - 10.0))
+            prev = segments[idx - 1] if idx > 0 else None
+            offset_sec = align_offset(seg.audio_start, prev and prev.items,
+                                      prev.audio_end if prev else 0.0)
             return offset_sec, int(offset_sec * SAMPLE_RATE), int(seg.audio_end * SAMPLE_RATE)
 
         def run_align(idx: int) -> None:

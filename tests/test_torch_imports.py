@@ -92,7 +92,8 @@ print("imported", len({modules!r}))
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == f"imported {len(modules)}"
     assert len(modules) > 30
-    for new in ("ops.qmm", "ops.mlp", "audio.split", "runtime.streaming", "runtime.model_api"):
+    for new in ("ops.qmm", "ops.mlp", "audio.split", "runtime.streaming", "runtime.model_api",
+                "runtime.batched", "runtime.microbatch", "cli.transcribe"):
         assert f"qwen3_asr_gguf_tpu_torch.{new}" in modules
 
 

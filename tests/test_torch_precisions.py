@@ -33,6 +33,7 @@ from qwen3_asr_gguf_tpu_torch.ops import mlp, qmm
 from qwen3_asr_gguf_tpu_torch.ops import qtensor as tq
 
 from test_torch_aligner import _assert_same_tree, _np
+from test_torch_engine import one_torch_thread  # noqa: F401  (a fixture)
 from test_torch_engine import KERNEL_PRESET, TINY_256, _audio, _config, _record_chunks
 
 GOLDEN_DIR = Path(__file__).parent / "golden"
@@ -290,10 +291,86 @@ def test_reproduces_golden_engine_int8(tmp_path):
     assert got == want
 
 
+@pytest.fixture(scope="module")
+def half_dir(tmp_path_factory):
+    """A `tiny` checkpoint with an f16 GGUF decoder, as the half-precision
+    engines load it."""
+    d = tmp_path_factory.mktemp("half_ckpt")
+    make_synthetic_checkpoint(str(d), "tiny", quant="f16", seed=0)
+    return str(d)
+
+
 @pytest.mark.parametrize("precision", ["bf16", "f16"])
-def test_half_precisions_still_raise(kernel_dir, precision):
-    with pytest.raises(NotImplementedError):
-        QwenASREngine(_config(kernel_dir, LLM, precision), device="cpu")
+@pytest.mark.usefixtures("one_torch_thread")
+def test_half_precision_engine_greedy_tokens_equal_jax(half_dir, precision):
+    """`precision="bf16"` and `"f16"` (the server's `--prec f16`): a dense
+    bf16 decoder from the f16 GGUF, bf16 KV, the half-precision encoder.
+    Per-chunk greedy tokens, text and token counts equal the jitted JAX
+    engine's on three chunks (fresh prefill, 1-chunk reuse, header-only
+    reuse); on this input no bf16 near-tie parts the two."""
+    cfg = _config(half_dir, "qwen3_asr_llm.f16.gguf", precision)
+    cfg.max_new_tokens = 12  # below the breaker's window
+    port = QwenASREngine(cfg, device="cpu")
+    layer = port.generator.params["layers"][0]
+    assert layer["qkv_proj"].dtype == torch.bfloat16 and port.generator.params["embed"].dtype \
+        == torch.bfloat16
+    assert port.generator.cache_dtype == torch.bfloat16 and not port.generator.fused_mlp
+    assert port.generator.prefill_params is port.generator.params
+    want = _run(JaxEngine(cfg), AUDIO)
+    got = _run(port, AUDIO)
+    assert len(want[0]) == 3 and all(want[0])
+    assert got == want
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f16"])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_half_precision_encoder_rounds_twice(half_dir, precision):
+    """The encoder's weights go f32 -> f16 -> bf16, bit-equal to the JAX
+    engine's and to the same two roundings in numpy (ml_dtypes); a direct
+    f32 -> bf16 cast gives other weights."""
+    import ml_dtypes
+
+    from qwen3_asr_gguf_tpu_torch.models import safetensors_np
+
+    cfg = _config(half_dir, "qwen3_asr_llm.f16.gguf", precision)
+    port = QwenASREngine(cfg, device="cpu")
+    jax_params = _np(JaxEngine(cfg).encoder.params)
+    for i in (1, 2, 3):  # the JAX runner keeps host conv weights as HWIO
+        jax_params[f"conv{i}_w"] = np.transpose(jax_params[f"conv{i}_w"], (3, 2, 0, 1))
+    _assert_same_tree(port.encoder.params, tP.from_jax_params(jax_params))
+    flat, _ = safetensors_np.load_file(os.path.join(half_dir, "qwen3_asr_encoder.safetensors"))
+    f32 = np.asarray(flat["layers.q_w"][0], np.float32)
+    twice = f32.astype(np.float16).astype(ml_dtypes.bfloat16).view(np.uint16)
+    got = port.encoder.params["layers"][0]["q_w"]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16), twice)
+    assert (f32.astype(ml_dtypes.bfloat16).view(np.uint16) != twice).any()
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_micro_mode_serves_int4_at_int8(kernel_dir, capsys):
+    """`--batch-mode micro` at the default `--prec int4` builds an int8
+    engine and says so on stderr, as the JAX server does; its batch's text
+    equals the engine's on full 2 s chunks."""
+    from qwen3_asr_gguf_tpu_torch.cli import serve
+    from qwen3_asr_gguf_tpu_torch.runtime.microbatch import MicroBatcher
+
+    server, engine, batcher = serve.build(
+        ["--model-dir", kernel_dir, "--chunk-size", "2", "--n-ctx", "512", "--device", "cpu",
+         "--batch-mode", "micro"], max_new_tokens=8, decode_block=8)
+    try:
+        assert "[info] micro-batched serving uses precision=int8" in capsys.readouterr().err
+        assert engine.config.precision == "int8" and engine.config.llm_fn == LLM
+        assert isinstance(batcher, MicroBatcher) and batcher.max_batch == 8
+        assert isinstance(batcher.batched.gen.params["layers"][0]["qkv_proj"], tq.Int8Weight)
+        audios = [_audio(2.0, f) for f in (440.0, 550.0)]
+        got = batcher.batched.transcribe_batch(audios, language="English")
+        for audio, res in zip(audios, got):
+            want = engine.asr(audio, context="", language="English", chunk_size_sec=2.0,
+                              temperature=0.0).text
+            assert res.performance["batched"] and res.text == want and want
+    finally:
+        batcher.close()
 
 
 @pytest.mark.parametrize("prec", ["int8", "q4_k"])

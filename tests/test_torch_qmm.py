@@ -147,3 +147,23 @@ def test_supported_is_the_ports_own_rule():
                                    x @ unpack_q4(p).T, rtol=1e-4, atol=2e-4)
     p = pack_q4_direct(rng.standard_normal((8, 128)).astype(np.float32), group=64)
     assert not qmm.supported((1, 128), tq.Q4Weight.from_packed(p))  # groups of 64
+
+
+def test_strided_rows_reach_the_kernel_as_dense_rows(monkeypatch):
+    """On the card q4_matmul takes dense rows only (it raises on a strided
+    x); the encoder's conv features are a strided view (`conv_frontend`'s
+    permute and reshape), so the dispatch copies x first. Here the wrapper
+    stands in the dispatch behind a check that every x it gets is
+    contiguous: a strided 26-row x (a 2 s chunk's conv_out product) gives
+    the result of its dense copy."""
+    _, tw, _, rng = _weights(64, 512, 3)
+    base = torch.from_numpy(rng.standard_normal((2, 32, 16, 13)).astype(np.float32))
+    x = base.permute(0, 3, 1, 2).reshape(2, 13, 512)  # [N, C, F, T] -> [N, T, C*F], a view
+    assert not x.is_contiguous()
+    seen, inner = [], qmm.q4_matmul
+    monkeypatch.setattr(tq, "_q4_kernel_route", lambda x: True)
+    monkeypatch.setattr(qmm, "q4_matmul",
+                        lambda a, w: seen.append(a.is_contiguous()) or inner(a, w))
+    got = tq.matmul(x, tw)
+    assert seen == [True]
+    assert torch.equal(got, inner(x.contiguous(), tw))

@@ -120,11 +120,52 @@ def test_build_is_the_cli_path_and_loads_no_jax(model_dir):
     assert out.stdout.strip() == "False"
 
 
-@pytest.mark.parametrize("extra", [("--mesh", "model=2"), ("--timestamp",),
-                                   ("--batch-mode", "micro")])
+@pytest.mark.parametrize("extra", [("--mesh", "model=2")])
 def test_not_ported_flags_raise(model_dir, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve.build(_argv(model_dir, *extra))
+
+
+def test_micro_mode_serves_concurrent_posts_as_one_batch(model_dir):
+    """`--batch-mode micro` puts a MicroBatcher behind the server: three
+    concurrent requests inside the gather window decode as one batch, each
+    text equal to the engine's greedy transcript, and /stats reads the
+    batcher's counters."""
+    from qwen3_asr_gguf_tpu_torch.runtime.microbatch import MicroBatcher
+
+    srv, engine, batcher = serve.build(
+        _argv(model_dir, "--batch-mode", "micro", "--batch-window", "0.5"),
+        max_new_tokens=12, decode_block=8)
+    assert isinstance(batcher, MicroBatcher) and batcher.window_s == 0.5
+    assert batcher.max_batch == 4 and engine.config.precision == "f32"
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    audios = [np.round(_audio(1.5, f) * 32767) / 32767 for f in (330.0, 550.0, 770.0)]
+    try:
+        with ThreadPoolExecutor(3) as pool:
+            answers = list(pool.map(lambda a: _post(url, a, "json"), audios))
+        status, stats = _get(f"{url}/stats")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+    for audio, (code, body) in zip(audios, answers):
+        want = engine.asr(audio.astype(np.float32), context="", language="English",
+                          chunk_size_sec=2.0, temperature=0.0).text
+        assert code == 200 and json.loads(body)["text"] == want and want
+    assert stats["batches"] == batcher.n_batches >= 1
+    assert stats["batched_requests"] == batcher.n_batched_requests >= 2
+
+
+@pytest.mark.parametrize("extra", [("--batch-mode", "micro", "--batch-window", "0"),
+                                   ("--batch-mode", "micro", "--max-batch", "1"),
+                                   ("--batch-mode", "continuous", "--max-batch", "1")])
+def test_no_batcher_without_a_window_or_a_batch(model_dir, extra):
+    """`--batch-window 0` turns micro-batching off, and so does `--max-batch
+    1` in either mode: the engine serves every request alone."""
+    srv, _, batcher = serve.build(_argv(model_dir, *extra))
+    assert batcher is None and srv.batcher is None
 
 
 def test_no_fallback_to_another_device(model_dir, monkeypatch):
