@@ -89,7 +89,26 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
 19. `cli/transcribe.py` with `--timestamp` on a wav of the 50.2 s clip: its
    .txt, .srt and .json, the items in order and in bounds, kernels 1, 2 and 4
    launched;
-20. the kernels that one q4k_matvec call puts on the device (torch.profiler:
+20. `cli/quant_accuracy.py` on the 1.7B checkpoint: the bars (encoder int4
+   cosine >= 0.96, decoder hidden cosine >= 0.90), q4_matmul once per
+   `Q4Weight` product of its 64-row q4_k prefill, and the same report on the
+   CPU beside it;
+21. `cli/perplexity.py --compare f32` on the 1.7B q4_k GGUF over README.md
+   (window 512, 2048 tokens): |delta| <= 9%, each precision timed, and the
+   first window's f32 perplexity on the card within 1e-3 of the CPU's;
+22. `cli/demo_streaming.py` (int8): two sessions over HTTP at once, 12 s each
+   in 2 s base64 chunks; each final text equal to a StreamingTranscriber's
+   alone on the same engine; fused_mlp_matvec and gqa_decode_attention once
+   per layer per decode step;
+23. a seeded bf16 Hugging Face-layout qwen3-asr-0.6b directory converted by
+   `python -m qwen3_asr_gguf_tpu_torch.export --hf` and by
+   `cli/verify_weights.py verify(quant="q4_k")`: convert, load, both
+   fidelity stages PASS, the oracle SKIP (the reference modeling is
+   absent); the decode attention in the load stage, q4_matmul in the
+   fidelity stage;
+24. the example twins: `examples.run_asr` on a wav of the 50.2 s clip
+   (kernels 1, 2, 4) and `examples.run_aligner` on a 10 s tone and 12 words;
+25. the kernels that one q4k_matvec call puts on the device (torch.profiler:
    one) and one q4k_matvec_normed call (one: the rms_norm is in its
    prologue), at each decode shape, and one fused_mlp_matvec call (one
    cooperative launch) at both MLP shapes: last, so that no profiler session
@@ -995,6 +1014,7 @@ class StepCounter:
         from qwen3_asr_gguf_tpu_torch.models import decoder as dec
 
         self.dec, self.inner, self.n = dec, {}, dict.fromkeys(self.NAMES, 0)
+        self.lock = threading.Lock()  # the demo's sessions decode on two threads
         for name in self.NAMES:
             self.inner[name] = getattr(dec, name)
             setattr(dec, name, self._counting(name))
@@ -1002,7 +1022,8 @@ class StepCounter:
 
     def _counting(self, name):
         def call(*args, **kw):
-            self.n[name] += 1
+            with self.lock:
+                self.n[name] += 1
             return self.inner[name](*args, **kw)
         return call
 
@@ -1864,6 +1885,365 @@ def transcribe_cli_phase(torch, dev, model_dir: Path) -> dict:
     return row
 
 
+def q4_weight_products(gguf: Path) -> int:
+    """The `Q4Weight` products of one prefill of the `q4_k` loader's decoder,
+    read from the GGUF: each 2-D q4_k layer matrix once, plus the head,
+    which the loader requantizes to a `Q4Weight` when the hidden size is a
+    multiple of 64 (models/params.py `load_decoder_gguf`)."""
+    from qwen3_asr_gguf_tpu_torch.formats import GGUFReader
+    from qwen3_asr_gguf_tpu_torch.formats import quants as q
+
+    r = GGUFReader(str(gguf))
+    layers = sum(1 for name, ti in r.tensors.items() if name.startswith("blk.")
+                 and ti.ggml_type == q.GGML_Q4_K and len(ti.shape) == 2)
+    hidden = r.tensors["token_embd.weight"].shape[1]
+    return layers + (hidden % 64 == 0)
+
+
+def captured(call):
+    """(what `call()` returns, what it printed) for an entry point called in
+    this process."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = call()
+    return result, buf.getvalue()
+
+
+def quant_accuracy_phase(torch, dev, model_dir: Path) -> dict:
+    """`cli/quant_accuracy.py main` on the 1.7B q4_k checkpoint: exit code 0,
+    the encoder int4 cosine >= 0.96 and the decoder hidden cosine >= 0.90;
+    the 64-row q4_k prefill takes every `Q4Weight` product of the call
+    through q4_matmul (the encoders' 130 rows dequantize). The same main on
+    the CPU gives the values the card's are set beside (there the products
+    dequantize too)."""
+    from qwen3_asr_gguf_tpu_torch.cli import quant_accuracy
+    from qwen3_asr_gguf_tpu_torch.ops import qmm
+
+    t_phase = time.time()
+    products = q4_weight_products(model_dir / "qwen3_asr_llm.q4_k.gguf")
+    qmm.q4_matmul.launches = 0
+    rc, out = captured(lambda: quant_accuracy.main(["--model-dir", str(model_dir),
+                                                    "--device", str(dev)]))
+    torch.cuda.synchronize()
+    launches = qmm.q4_matmul.launches
+    card_s = time.time() - t_phase
+    report = json.loads(out)
+    t0 = time.time()
+    cpu_rc, cpu_out = captured(lambda: quant_accuracy.main(["--model-dir", str(model_dir),
+                                                            "--device", "cpu"]))
+    cpu = json.loads(cpu_out)
+    row = {"phase": "quant_accuracy", "rc": rc, "report": report, "cpu_rc": cpu_rc,
+           "cpu_report": cpu, "q4_weight_products": products,
+           "launches": {"q4_matmul": launches}, "card_s": card_s, "cpu_s": time.time() - t0,
+           "seconds": time.time() - t_phase}
+    emit(row)
+    require(rc == 0 and report["encoder_pass"] and report["decoder_pass"],
+            f"quant_accuracy failed a bar: {report}")
+    require(report["encoder_int4_cosine"] >= quant_accuracy.ENCODER_BAR
+            and report["decoder_hidden_cosine"] >= quant_accuracy.DECODER_BAR, "bars")
+    require(launches == products, f"quant_accuracy: {launches} q4_matmul launches for "
+                                  f"{products} Q4Weight products")
+    torch.cuda.empty_cache()
+    return row
+
+
+PPL_WINDOW, PPL_MAX_TOKENS, PPL_BAR_PCT = 512, 2048, 9.0
+PPL_CARD_VS_CPU = 1e-3  # relative, f32 perplexity of one window
+
+
+def perplexity_phase(torch, dev, model_dir: Path) -> dict:
+    """`cli/perplexity.py main --compare f32` on the 1.7B q4_k GGUF over the
+    repo's README (window 512, 2048 tokens): both perplexities finite and
+    the delta within 9%; each precision timed; no q4_matmul launch (513-row
+    windows dequantize per call). Then the f32 perplexity of the first
+    window on the card against the same on the CPU (within 1e-3)."""
+    import numpy as np
+
+    from qwen3_asr_gguf_tpu_torch.cli import perplexity
+    from qwen3_asr_gguf_tpu_torch.formats import GGUFReader
+    from qwen3_asr_gguf_tpu_torch.ops import qmm
+    from qwen3_asr_gguf_tpu_torch.text.tokenizer import BPETokenizer
+
+    t_phase = time.time()
+    llm = model_dir / "qwen3_asr_llm.q4_k.gguf"
+    seconds, inner = {}, perplexity.compute_ppl
+
+    def timed(path, ids, *, precision, window, device):
+        t0 = time.time()
+        out = inner(path, ids, precision=precision, window=window, device=device)
+        torch.cuda.synchronize()
+        seconds[precision] = time.time() - t0
+        return out
+
+    qmm.q4_matmul.launches = 0
+    perplexity.compute_ppl = timed
+    try:
+        rc, out = captured(lambda: perplexity.main([
+            "--llm", str(llm), "--text", str(REPO / "README.md"), "--compare", "f32",
+            "--window", str(PPL_WINDOW), "--max-tokens", str(PPL_MAX_TOKENS),
+            "--device", str(dev)]))
+    finally:
+        perplexity.compute_ppl = inner
+    launches = qmm.q4_matmul.launches
+    report = json.loads(out)
+    tok = BPETokenizer.from_gguf_kv(GGUFReader(str(llm)).kv)
+    ids = np.asarray(tok.encode((REPO / "README.md").read_text(encoding="utf-8"))
+                     [: PPL_WINDOW + 1], dtype=np.int32)
+    card = inner(str(llm), ids, precision="f32", window=PPL_WINDOW, device=dev)
+    t0 = time.time()
+    cpu = inner(str(llm), ids, precision="f32", window=PPL_WINDOW, device="cpu")
+    rel = abs(card - cpu) / cpu
+    row = {"phase": "perplexity", "rc": rc, "report": report, "seconds_per_precision": seconds,
+           "launches": {"q4_matmul": launches}, "first_window_f32": {"card": card, "cpu": cpu,
+           "rel_diff": rel, "bound": PPL_CARD_VS_CPU, "cpu_s": time.time() - t0},
+           "seconds": time.time() - t_phase}
+    emit(row)
+    require(rc == 0 and report["tokens"] == PPL_MAX_TOKENS, f"perplexity: {report}")
+    require(all(math.isfinite(report[k]) for k in ("ppl_q4_k", "ppl_f32")), "ppl not finite")
+    require(abs(report["delta_pct"]) <= PPL_BAR_PCT, f"ppl delta {report['delta_pct']}%")
+    require(launches == 0, f"perplexity: {launches} q4_matmul launches on 513-row windows")
+    require(rel <= PPL_CARD_VS_CPU, f"f32 ppl card {card} vs cpu {cpu}")
+    torch.cuda.empty_cache()
+    return row
+
+
+DEMO_SECONDS, DEMO_CHUNK_SECONDS, DEMO_NEW_TOKENS = 12.0, 2.0, 15
+
+
+def demo_streaming_phase(torch, dev, model_dir: Path) -> dict:
+    """`cli/demo_streaming.py` at its default `--prec int8` on the 1.7B
+    checkpoint (15 new tokens per step, greedy, below the breaker's window):
+    two sessions over HTTP at once, each 12 s of a tone in 2 s base64
+    chunks, every chunk request of one in flight with the other's (the
+    store feeds them in turn); each final text equals a
+    `StreamingTranscriber`'s alone on the same engine and chunks, whose
+    per-chunk latency is timed beside the sessions'. Every decode step of
+    the sessions runs fused_mlp_matvec and gqa_decode_attention once per
+    layer."""
+    import base64
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from qwen3_asr_gguf_tpu_torch.cli import demo_streaming
+    from qwen3_asr_gguf_tpu_torch.ops import attn, mlp
+    from qwen3_asr_gguf_tpu_torch.runtime.streaming import StreamingTranscriber
+
+    t_phase = time.time()
+    store, _ = demo_streaming.build(["--model-dir", str(model_dir), "--device", str(dev)],
+                                    max_new_tokens=DEMO_NEW_TOKENS,
+                                    decode_block=DEMO_NEW_TOKENS)
+    engine = store.transcriber.engine
+    init_s = time.time() - t_phase
+    require(engine.generator.fused_mlp, "the demo's int8 engine runs no fused MLP")
+    piece = int(DEMO_CHUNK_SECONDS * 16_000)
+    audios = [tone(DEMO_SECONDS, f) for f in (310.0, 470.0)]
+    pieces = [[a[i: i + piece] for i in range(0, len(a), piece)] for a in audios]
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), demo_streaming.make_handler(store))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path, body):
+        req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+
+    together = threading.Barrier(2)
+    finals, lat = [None, None], [[], []]
+
+    def session(i):
+        sid = post("/api/start", {})["sid"]
+        for p in pieces[i]:
+            together.wait(timeout=600)
+            t0 = time.time()
+            post("/api/chunk", {"sid": sid, "pcm": base64.b64encode(p.tobytes()).decode()})
+            lat[i].append(time.time() - t0)
+        finals[i] = post("/api/finish", {"sid": sid})["text"]
+
+    wrappers = (mlp.fused_mlp_matvec, attn.gqa_decode_attention)
+    try:
+        for i in range(2):  # warm-up: each session alone, uncounted
+            st = StreamingTranscriber(engine, chunk_size_sec=DEMO_CHUNK_SECONDS)
+            state = st.init_state()
+            st.feed(state, audios[i][: 2 * piece])
+        for w in wrappers:
+            w.launches = 0
+        with StepCounter() as counter, ThreadPoolExecutor(2) as pool:
+            t0 = time.time()
+            list(pool.map(session, range(2)))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    alone, alone_lat = [], [[], []]
+    for i in range(2):
+        st = StreamingTranscriber(engine, chunk_size_sec=DEMO_CHUNK_SECONDS)
+        state = st.init_state()
+        for p in pieces[i]:
+            t0 = time.time()
+            st.feed(state, p)
+            torch.cuda.synchronize()
+            alone_lat[i].append(time.time() - t0)
+        alone.append(st.finish(state))
+    layers = engine.dec_cfg.num_layers
+    row = {"phase": "demo_streaming", "engine_init_s": init_s, "sessions": 2,
+           "audio_s": DEMO_SECONDS, "chunk_s": DEMO_CHUNK_SECONDS, "wall_s": wall,
+           "chunk_latency_s": lat, "alone_chunk_latency_s": alone_lat,
+           "decode_steps": counter.steps, "prefills": counter.prefills,
+           "launches": launches, "texts_equal_alone": [finals[i] == alone[i] for i in range(2)],
+           "text_chars": [len(t) for t in finals], "seconds": time.time() - t_phase}
+    emit(row)
+    require(all(finals) and finals == alone, f"demo texts {finals} != alone {alone}")
+    require(counter.steps > 0 and all(n == layers * counter.steps for n in launches.values()),
+            f"demo: {launches} launches for {counter.steps} decode steps of {layers} layers")
+    del store, engine
+    torch.cuda.empty_cache()
+    return row
+
+
+HF_PRESET = "qwen3-asr-0.6b"
+
+
+def ensure_hf_checkpoint() -> tuple[Path, float, bool]:
+    """(directory, seconds, written now) of a seeded bf16 HF-layout
+    qwen3-asr-0.6b checkpoint beside the others."""
+    from qwen3_asr_gguf_tpu_torch.devtools.hf_checkpoint import write_hf_checkpoint
+
+    out = REPO / ".bench_cache" / "torch" / f"{HF_PRESET}-hf"
+    t0 = time.time()
+    built = not (out / "model.safetensors").exists()
+    if built:
+        write_hf_checkpoint(str(out), HF_PRESET, seed=0)
+    return out, time.time() - t0, built
+
+
+def verify_weights_phase(torch, dev) -> dict:
+    """The convert-and-verify path on a 0.6B HF-layout bf16 directory:
+    `python -m qwen3_asr_gguf_tpu_torch.export --hf` (f16), then
+    `cli/verify_weights.py verify(..., quant="q4_k")`: convert, load (the
+    f32 engine transcribes 4 s; kernel 4 on its f32 cache) and both fidelity
+    stages PASS (q4_matmul on every Q4Weight product of quant_accuracy's
+    prefill); the oracle stage SKIP, naming the missing reference modeling.
+    The CLI's f16 GGUF equals verify's byte for byte."""
+    import filecmp
+
+    from qwen3_asr_gguf_tpu_torch import preset
+    from qwen3_asr_gguf_tpu_torch.cli import verify_weights
+    from qwen3_asr_gguf_tpu_torch.ops import attn, qmm
+
+    t_phase = time.time()
+    hf, hf_s, hf_built = ensure_hf_checkpoint()
+    work = REPO / ".bench_cache" / "torch" / "verify"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.time()
+    cli = subprocess.run([sys.executable, "-m", "qwen3_asr_gguf_tpu_torch.export", "--hf",
+                          str(hf), "--out", str(work / "cli"), "--quant", "f16"],
+                         cwd=REPO, capture_output=True, text=True, timeout=900)
+    cli_s = time.time() - t0
+    require(cli.returncode == 0, f"export --hf failed: {cli.stderr[-2000:]}")
+    wrappers = (attn.gqa_decode_attention, qmm.q4_matmul)
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.time()
+    with StepCounter() as counter:
+        _, out = captured(lambda: verify_weights.verify(
+            str(hf), str(work / "model"), quant="q4_k", device=str(dev)))
+    torch.cuda.synchronize()
+    verify_s = time.time() - t0
+    stages = {}
+    for line in out.splitlines():
+        m = re.match(r"\[\s*(PASS|FAIL|SKIP)\] ([\w/-]+): (.*)", line)
+        if m:
+            stages[m.group(2)] = (m.group(1), m.group(3))
+    launches = {w.__name__: w.launches for w in wrappers}
+    products = q4_weight_products(work / "model" / "qwen3_asr_llm.q4_k.gguf")
+    same_f16 = filecmp.cmp(work / "cli" / "qwen3_asr_llm.f16.gguf",
+                           work / "model" / "qwen3_asr_llm.f16.gguf", shallow=False)
+    layers = preset(HF_PRESET).text.num_layers
+    row = {"phase": "verify_weights_0p6b", "preset": HF_PRESET, "hf_written": hf_built,
+           "hf_write_s": hf_s, "export_cli_s": cli_s, "verify_s": verify_s,
+           "stages": stages, "decode_steps": counter.steps, "launches": launches,
+           "q4_weight_products": products, "cli_f16_equals_verify_f16": same_f16,
+           "seconds": time.time() - t_phase}
+    emit(row)
+    for stage in ("convert", "load", "fidelity/quant-cosine", "fidelity/ppl-delta"):
+        require(stages.get(stage, ("missing",))[0] == "PASS", f"verify {stage}: {stages}")
+    require(stages["oracle"] == ("SKIP", f"reference modeling not found: "
+                                         f"{verify_weights.REF_TB}"), f"oracle: {stages}")
+    require(same_f16, "the export CLI's f16 GGUF differs from verify's")
+    require(counter.steps > 0 and launches["gqa_decode_attention"] == layers * counter.steps,
+            f"verify: {launches} for {counter.steps} decode steps")
+    require(launches["q4_matmul"] == products,
+            f"verify: {launches['q4_matmul']} q4_matmul launches for {products} products")
+    torch.cuda.empty_cache()
+    return row
+
+
+def examples_phase(torch, dev, model_dir: Path) -> dict:
+    """The example twins: `examples.run_asr` at its defaults (int4, 40 s
+    chunks, temperature 0.4; max_new_tokens 96 through the schema's
+    default, which no argument sets) on a wav of the 50.2 s clip, kernels 1,
+    2 and 4 launching; `examples.run_aligner` (the 0.6B aligner at its
+    default int8) on a 10 s tone and a 12-word text, one item per word
+    inside the clip plus the 4000 classes' span."""
+    import dataclasses
+
+    from qwen3_asr_gguf_tpu_torch.examples import run_aligner, run_asr
+    from qwen3_asr_gguf_tpu_torch.ops import attn, q4k
+    from qwen3_asr_gguf_tpu_torch.runtime.aligner import STEP_MS, TIMESTAMP_CLASSES
+
+    t_phase = time.time()
+    work = REPO / ".bench_cache" / "torch" / "examples"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    (work / "clip.wav").write_bytes(wav_bytes(synthetic_clip(CLIP_SECONDS)))
+    (work / "tone.wav").write_bytes(wav_bytes(tone(10.0, 440.0)))
+    wrappers = (q4k.q4k_matvec, q4k.q4k_matvec_normed, attn.gqa_decode_attention)
+    for w in wrappers:
+        w.launches = 0
+
+    @dataclasses.dataclass
+    class Config(run_asr.ASREngineConfig):
+        max_new_tokens: int = 96
+        decode_block: int = 96
+
+    saved, run_asr.ASREngineConfig = run_asr.ASREngineConfig, Config
+    try:
+        _, asr_out = captured(lambda: run_asr.main(
+            [str(model_dir), str(work / "clip.wav"), "--device", str(dev)]))
+    finally:
+        run_asr.ASREngineConfig = saved
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    asr_s = time.time() - t_phase
+    t0 = time.time()
+    _, align_out = captured(lambda: run_aligner.main(
+        [str(model_dir), str(work / "tone.wav"), ALIGN_CHECK_TEXT, "English",
+         "--device", str(dev)]))
+    items = []
+    for line in align_out.splitlines():
+        m = re.match(r"\[\s*([\d.]+) -\s*([\d.]+)\] (.*)", line)
+        if m and m.group(3).strip():
+            items.append((float(m.group(1)), float(m.group(2)), m.group(3)))
+    transcript = asr_out.split("--- transcript ---\n", 1)[-1].split("\n--- performance ---")[0]
+    latest = 10.0 + TIMESTAMP_CLASSES * STEP_MS / 1000.0
+    row = {"phase": "examples", "run_asr_s": asr_s, "transcript_chars": len(transcript.strip()),
+           "launches": launches, "run_aligner_s": time.time() - t0, "aligned_words": len(items),
+           "items_head": items[:3], "seconds": time.time() - t_phase}
+    emit(row)
+    require(transcript.strip() and "decode_tokens" in asr_out, "run_asr printed no transcript")
+    require(all(n > 0 for n in launches.values()), f"run_asr: a kernel never launched {launches}")
+    require([w for _, _, w in items] == ALIGN_CHECK_TEXT.split(), f"aligned words {items}")
+    require(all(0.0 <= a <= b <= latest for a, b, _ in items), f"items out of bounds {items}")
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2000,6 +2380,11 @@ def main() -> int:
     serve_micro_phase(torch, dev, model_dir, prec="q4_k")
     asr_bf16_phase(torch, dev)
     transcribe_cli_phase(torch, dev, model_dir)
+    quant_accuracy_phase(torch, dev, model_dir)
+    perplexity_phase(torch, dev, model_dir)
+    demo_streaming_phase(torch, dev, model_dir)
+    verify_weights_phase(torch, dev)
+    examples_phase(torch, dev, model_dir)
     device_kernels_phase(torch, dev, cfg.text)
     # each kernel's launches from the run of its own path
     launches["q4k_matmul_rows"] = served["launches"]["q4k_matmul_rows"]

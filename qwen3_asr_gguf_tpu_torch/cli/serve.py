@@ -27,6 +27,7 @@ import argparse
 import sys
 from http.server import ThreadingHTTPServer
 
+from .device import cli_device
 from .http import ASRServer, make_handler
 from .transcribe import _resolve_llm_fn
 
@@ -61,18 +62,13 @@ def build_parser() -> argparse.ArgumentParser:
 def build_from_args(args: argparse.Namespace, **engine_config):
     """(server, engine, batcher) for parsed arguments; `engine_config`
     overrides fields of the engine's `ASREngineConfig`."""
-    import torch
-
     from ..runtime.engine import QwenASREngine
     from ..schema import AlignerConfig, ASREngineConfig
 
     if args.mesh:
         raise NotImplementedError("--mesh: tensor-parallel serving is not ported yet "
                                   "(ROADMAP.md Queue 1, item 7)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the server runs on --device "
-                           f"{args.device} or not at all (pass --device cpu to choose the CPU)")
+    device = cli_device(args.device, "the server")
     llm_fn = args.llm_fn or _resolve_llm_fn(args.model_dir, args.prec)
     precision = {"f16": "bf16"}.get(args.prec, args.prec)
     if precision == "int4" and args.max_batch > 1 and args.batch_mode != "continuous":

@@ -20,6 +20,8 @@ import sys
 import time
 from pathlib import Path
 
+from .device import cli_device
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -79,12 +81,7 @@ def main(argv=None) -> int:
     if args.mesh:
         raise NotImplementedError("--mesh: tensor-parallel inference is not ported yet "
                                   "(ROADMAP.md Queue 1, item 7)")
-    import torch
-
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the CLI runs on --device "
-                           f"{args.device} or not at all (pass --device cpu to choose the CPU)")
+    device = cli_device(args.device)
 
     model_dir = args.model_dir
     llm_fn = _resolve_llm_fn(model_dir, args.prec)

@@ -47,7 +47,7 @@ COPIED = ["schema.py", "models/configs.py", "formats/__init__.py", "formats/gguf
           "formats/quants.py", "text/__init__.py", "text/tokenizer.py", "text/parsing.py",
           "text/align_text.py", "text/itn.py", "text/exporters.py", "utils/__init__.py",
           "utils/languages.py", "audio/io.py", "native.py", "audio/split.py",
-          "runtime/streaming.py", "runtime/model_api.py"]
+          "runtime/streaming.py", "runtime/model_api.py", "formats/__main__.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -93,7 +93,10 @@ print("imported", len({modules!r}))
     assert out.stdout.strip() == f"imported {len(modules)}"
     assert len(modules) > 30
     for new in ("ops.qmm", "ops.mlp", "audio.split", "runtime.streaming", "runtime.model_api",
-                "runtime.batched", "runtime.microbatch", "cli.transcribe"):
+                "runtime.batched", "runtime.microbatch", "cli.transcribe", "export.convert",
+                "export.__main__", "formats.__main__", "cli.perplexity", "cli.quant_accuracy",
+                "cli.diagnostics", "cli.demo_streaming", "cli.verify_weights", "cli.release",
+                "examples.run_asr", "examples.run_aligner"):
         assert f"qwen3_asr_gguf_tpu_torch.{new}" in modules
 
 
