@@ -1455,17 +1455,18 @@ def greedy_engine_tokens(torch, engine, audio):
 
 
 def near_tie_verdict(phase: str, engine_text: str, engine_tokens: list, logits: list,
-                     other_text: str, other_tokens: list) -> dict:
+                     other_text: str, other_tokens: list, limit: int = BATCH_NEW_TOKENS) -> dict:
     """The batched-against-engine rule: equal tokens give equal texts, and
     where the tokens part, the engine's top-2 logit margin at the first
     differing step is within 2 bf16 ulp (a near-tie: the kernels sum in
-    other orders). Raises otherwise; returns the verdict's fields."""
-    n = min(len(engine_tokens), len(other_tokens), BATCH_NEW_TOKENS)
+    other orders). Raises otherwise; returns the verdict's fields. The first
+    `limit` tokens are compared."""
+    n = min(len(engine_tokens), len(other_tokens), limit)
     first = next((i for i in range(n) if engine_tokens[i] != other_tokens[i]), None)
     row = {"texts_equal": engine_text == other_text, "tokens_compared": n,
            "first_differing_step": first}
     if first is not None:
-        top1, top2, _ = logits[first]
+        top1, top2 = logits[first][:2]
         row.update(engine_top2_margin=top1 - top2, engine_top1=top1,
                    margin_limit=2 * bf16_ulp(top1))
     require(n > 0 and engine_text and other_text, f"{phase}: no tokens")
@@ -1774,17 +1775,34 @@ def serve_micro_phase(torch, dev, model_dir: Path, prec: str = "int4") -> dict:
     return row
 
 
+def cut_preset(name: str, layers: int) -> str:
+    """A preset of `name`'s widths at `layers` decoder and encoder layers,
+    registered in the port's table; returns its name."""
+    import dataclasses
+
+    from qwen3_asr_gguf_tpu_torch.models import configs
+
+    cut = f"{name}-{layers}l"
+    base = configs.PRESETS[name]
+    configs.PRESETS[cut] = dataclasses.replace(
+        base, audio=dataclasses.replace(base.audio, encoder_layers=layers),
+        text=dataclasses.replace(base.text, num_layers=layers))
+    return cut
+
+
 def ensure_half_checkpoint() -> Path:
-    """A random-weight qwen3-asr-1.7b with an f16 GGUF decoder, in a
+    """A random-weight qwen3-asr-1.7b with an f16 GGUF decoder at HALF_LAYERS
+    layers (the route, not the depth, is what the phase checks), in a
     directory of its own beside the q4_k checkpoint."""
     from qwen3_asr_gguf_tpu_torch.export.synthetic import make_synthetic_checkpoint
 
-    out = REPO / ".bench_cache" / "torch" / f"{PRESET}-f16"
+    name = cut_preset(PRESET, HALF_LAYERS)
+    out = REPO / ".bench_cache" / "torch" / f"{name}-f16"
     t0 = time.time()
     built = not (out / "qwen3_asr_llm.f16.gguf").exists()
     if built:
-        make_synthetic_checkpoint(str(out), PRESET, quant="f16", seed=0)
-    emit({"phase": "checkpoint_f16", "preset": PRESET, "built": built,
+        make_synthetic_checkpoint(str(out), name, quant="f16", seed=0)
+    emit({"phase": "checkpoint_f16", "preset": name, "built": built,
           "seconds": time.time() - t0})
     return out
 
@@ -2107,18 +2125,21 @@ def demo_streaming_phase(torch, dev, model_dir: Path) -> dict:
 
 
 HF_PRESET = "qwen3-asr-0.6b"
+HF_LAYERS = 4  # verify_weights_0p6b: the HF directory's depth (published widths)
+HALF_LAYERS = 4  # asr_bf16: the f16 checkpoint's depth (published widths)
 
 
 def ensure_hf_checkpoint() -> tuple[Path, float, bool]:
     """(directory, seconds, written now) of a seeded bf16 HF-layout
-    qwen3-asr-0.6b checkpoint beside the others."""
+    qwen3-asr-0.6b checkpoint at HF_LAYERS layers beside the others."""
     from qwen3_asr_gguf_tpu_torch.devtools.hf_checkpoint import write_hf_checkpoint
 
-    out = REPO / ".bench_cache" / "torch" / f"{HF_PRESET}-hf"
+    name = cut_preset(HF_PRESET, HF_LAYERS)
+    out = REPO / ".bench_cache" / "torch" / f"{name}-hf"
     t0 = time.time()
     built = not (out / "model.safetensors").exists()
     if built:
-        write_hf_checkpoint(str(out), HF_PRESET, seed=0)
+        write_hf_checkpoint(str(out), name, seed=0)
     return out, time.time() - t0, built
 
 
@@ -2164,8 +2185,8 @@ def verify_weights_phase(torch, dev) -> dict:
     products = q4_weight_products(work / "model" / "qwen3_asr_llm.q4_k.gguf")
     same_f16 = filecmp.cmp(work / "cli" / "qwen3_asr_llm.f16.gguf",
                            work / "model" / "qwen3_asr_llm.f16.gguf", shallow=False)
-    layers = preset(HF_PRESET).text.num_layers
-    row = {"phase": "verify_weights_0p6b", "preset": HF_PRESET, "hf_written": hf_built,
+    layers = preset(cut_preset(HF_PRESET, HF_LAYERS)).text.num_layers
+    row = {"phase": "verify_weights_0p6b", "preset": HF_PRESET, "layers": layers, "hf_written": hf_built,
            "hf_write_s": hf_s, "export_cli_s": cli_s, "verify_s": verify_s,
            "stages": stages, "decode_steps": counter.steps, "launches": launches,
            "q4_weight_products": products, "cli_f16_equals_verify_f16": same_f16,
@@ -2242,6 +2263,624 @@ def examples_phase(torch, dev, model_dir: Path) -> dict:
     require(all(0.0 <= a <= b <= latest for a, b, _ in items), f"items out of bounds {items}")
     torch.cuda.empty_cache()
     return row
+
+
+# --------------------------------------------------------------------------
+# parallel/: tensor-parallel decode and serving, SP encode, the train step
+# --------------------------------------------------------------------------
+
+TP = 2  # ranks of the multi-rank phases, all on cuda:0 (gloo: NCCL refuses two ranks on a card)
+TP_TIMED_RUNS = 20  # the local-shape kernels: replays per timing
+TP_NEW_TOKENS = 8  # tp_batcher: greedy tokens per request
+TRAIN_MEL_SECONDS = 10.0
+TRAIN_STEPS = 3
+TRAIN_CUT_LAYERS = 2
+TRAIN_LOSS_REL = 1e-5  # f32: a loss of the same step in another world (sums in other orders)
+TRAIN_GRAD_REL = 1e-4  # f32: each gradient leaf within this much of its largest entry
+SP_ATOL, SP_RTOL = 2e-5, 1e-4  # the JAX dry run's bound
+SP_WINDOWS, SP_LAYERS = 8, 4
+
+
+def tp_local_shapes(cfg, tp: int) -> list[tuple[str, int, int]]:
+    """(name, N, K) of the local q4_k tiles of a tp-way 1.7B decode step
+    (unfused weights; the head padded to whole 2*BN*tp rows)."""
+    from qwen3_asr_gguf_tpu_torch.ops import q4k
+
+    d, m = cfg.hidden_size, cfg.intermediate_size
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    mult = 2 * q4k.BN * tp
+    return [("q_proj", hq * hd // tp, d), ("k_proj/v_proj", hkv * hd // tp, d),
+            ("o_proj", d, hq * hd // tp), ("gate_proj/up_proj", m // tp, d),
+            ("down_proj", d, m // tp), ("lm_head", -(-cfg.vocab_size // mult) * mult // tp, d)]
+
+
+def tp_kernel_phase(torch, dev, cfg, tp: int = TP) -> list[dict]:
+    """Kernels 1 and 3 (T = 8) at every local tile of a tp-way decode step,
+    and kernels 4 and 5 (B = 8) over the local heads, each against its plain
+    version (KERNEL_BOUND) and timed as in phases kernel, kernel_rows,
+    kernel_attn_decode and kernel_attn (TP_TIMED_RUNS replays)."""
+    global TIMED_RUNS
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+    from qwen3_asr_gguf_tpu_torch.ops import attn, q4k
+
+    saved_runs, TIMED_RUNS = TIMED_RUNS, TP_TIMED_RUNS
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    rows = []
+    try:
+        for shape, n, k in tp_local_shapes(cfg, tp):
+            nbytes, weights = cold_weights(torch, dev, g, n, k)
+            for name, t in (("q4k_matvec", 1), ("q4k_matmul_rows", 8)):
+                x = torch.randn((t, k), generator=g, device=dev).to(torch.bfloat16)
+                if t == 1:
+                    kern = lambda w: q4k.q4k_matvec(x, w)  # noqa: E731
+                    plain = lambda w: q4k.q4k_matvec_ref(x, w)  # noqa: E731
+                else:
+                    kern = lambda w: q4k.q4k_matmul_rows(x, w)  # noqa: E731
+                    plain = lambda w: q4k.q4k_matmul_rows_ref(x, w)  # noqa: E731
+                err, mag = rel_check(torch, f"{name}/tp{tp}/{shape}", kern(weights[0]),
+                                     plain(weights[0]))
+                ms = time_ms(kern, weights, torch)
+                least, by = bound_ms(nbytes + 2 * t * (k + n), 2 * t * n * k, "int8")
+                row = {"phase": "kernel_tp", "tp": tp, "name": name, "shape": shape, "t": t,
+                       "n": n, "k": k, "max_abs_err": err, "max_abs_plain": mag,
+                       "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain", "ok": True,
+                       "ms": ms, "plain_ms": time_ms(plain, weights, torch),
+                       "bound_ms": least, "bound_by": by,
+                       "library_ms": dense_matmul_ms(torch, x, weights),
+                       "library": "torch.matmul on the dequantized bf16 weight",
+                       "gb_per_s": nbytes / (ms * 1e6)}
+                emit(row)
+                rows.append(row)
+            del weights
+        hq, hkv, d = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
+        s_max, scale = 2048, d ** -0.5
+        q1 = (torch.randn((1, hq, d), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+        caches = [tuple(torch.randn((s_max, hkv, d), generator=g, device=dev)
+                        .to(torch.bfloat16) for _ in "kv") for _ in range(16)]
+        b = 8
+        qb = (torch.randn((b, hq, d), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+        q8 = []
+        for _ in range(4):
+            kq, ks = dec._quant_kv(torch.randn((b, s_max, hkv, d), generator=g, device=dev))
+            vq, vs = dec._quant_kv(torch.randn((b, s_max, hkv, d), generator=g, device=dev))
+            q8.append((kq, ks, vq, vs))
+        for win in (256, 1024, 2048):
+            pos = win - 1
+            pt = torch.tensor([pos], dtype=torch.int32, device=dev)
+            kern = lambda c: attn.gqa_decode_attention(q1, *c, pt, scale, win)  # noqa: E731
+            plain = lambda c: attn.gqa_decode_attention_ref(q1, *c, pos, scale, win)  # noqa: E731
+            err, mag = rel_check(torch, f"gqa_decode_attention/tp{tp}/win={win}",
+                                 kern(caches[0]), plain(caches[0]))
+            q4 = q1.permute(1, 0, 2)[None]
+
+            def sdpa(c):
+                k4, v4 = (t[:win].permute(1, 0, 2)[None] for t in c)
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, scale=scale, enable_gqa=True)
+
+            least, by = bound_ms(2 * win * hkv * d * 2 + 2 * 2 * hq * d, 4 * win * hq * d, "bf16")
+            row = {"phase": "kernel_tp", "tp": tp, "name": "gqa_decode_attention", "hq": hq,
+                   "hkv": hkv, "d": d, "s": s_max, "win": win, "pos": pos,
+                   "max_abs_err": err, "max_abs_plain": mag,
+                   "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain", "ok": True,
+                   "ms": time_ms(kern, caches, torch), "plain_ms": time_ms(plain, caches, torch),
+                   "bound_ms": least, "bound_by": by, "library_ms": time_ms(sdpa, caches, torch),
+                   "library": "scaled_dot_product_attention(enable_gqa=True) on the [:win] views"}
+            emit(row)
+            rows.append(row)
+            spread = torch.randint(0, win, (b - 3,), generator=g, device=dev)
+            poss = torch.cat([torch.tensor([5, 255, win - 1], device=dev), spread])
+            kern = lambda c: attn.gqa_rows_q8_attention(qb, *c, poss, scale, win)  # noqa: E731
+            plain = lambda c: attn.gqa_rows_q8_attention_ref(qb, *c, poss, scale, win)  # noqa: E731
+            err, mag = rel_check(torch, f"gqa_rows_q8_attention/tp{tp}/win={win}",
+                                 kern(q8[0]), plain(q8[0]))
+            slots = int((poss + 1).sum())
+            least, by = bound_ms(slots * hkv * (2 * d + 8) + 2 * 2 * b * hq * d,
+                                 4 * slots * hq * d, "bf16")
+            row = {"phase": "kernel_tp", "tp": tp, "name": "gqa_rows_q8_attention", "b": b,
+                   "hq": hq, "hkv": hkv, "d": d, "s": s_max, "win": win, "poss": poss.tolist(),
+                   "max_abs_err": err, "max_abs_plain": mag,
+                   "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain", "ok": True,
+                   "ms": time_ms(kern, q8, torch), "plain_ms": time_ms(plain, q8, torch),
+                   "bound_ms": least, "bound_by": by, "library_ms": None,
+                   "library": "none: no single PyTorch call folds the int8 cache's scales in"}
+            emit(row)
+            rows.append(row)
+    finally:
+        TIMED_RUNS = saved_runs
+    return rows
+
+
+def random_tree(torch, shapes: dict, seed: int, dev) -> dict:
+    """Weights of a stacked shape tree drawn on the card (norms and LayerNorm
+    weights 1, biases 0, the rest N(0, 0.02)) as per-layer lists: every rank
+    that asks with one seed gets the same values."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def fill(name, shape):
+        if "norm" in name or name in ("ln1_w", "ln2_w", "ln_post_w"):
+            return torch.ones(shape, device=dev)
+        if name.endswith("_b"):
+            return torch.zeros(shape, device=dev)
+        return torch.randn(shape, generator=g, device=dev) * 0.02
+
+    out = {k: fill(k, v) for k, v in sorted(shapes.items()) if k != "layers"}
+    stacked = {k: fill(k, v) for k, v in sorted(shapes["layers"].items())}
+    n = next(iter(stacked.values())).shape[0]
+    out["layers"] = [{k: v[i] for k, v in stacked.items()} for i in range(n)]
+    return out
+
+
+def recorded_products(torch, run):
+    """(result of run(), one list per LM-head product in it of [top1, top2,
+    argmax, ids, values] per row of its logits: the two largest logits, the
+    argmax, and the ids and logits of the top four)."""
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+
+    products, inner = [], dec.lm_logits
+
+    def recording(*args, **kw):
+        out = inner(*args, **kw)
+        rows = []
+        for row in out.float().reshape(-1, out.shape[-1]):
+            top = torch.topk(row, 4)
+            vals = top.values.tolist()
+            rows.append([vals[0], vals[1], int(row.argmax()), top.indices.tolist(), vals])
+        products.append(rows)
+        return out
+
+    dec.lm_logits = recording
+    try:
+        return run(), products
+    finally:
+        dec.lm_logits = inner
+
+
+def recorded_greedy(torch, run):
+    """(result of run(), [top1, top2, argmax] of every LM-head product in it)."""
+    result, products = recorded_products(torch, run)
+    return result, [row for rows in products for row in rows]
+
+
+def greedy_clip(torch, engine, audio):
+    """(text, fed tokens, logits record) of the engine's greedy call on the
+    whole clip with BATCH_NEW_TOKENS new tokens per chunk in one block
+    (below the breaker's window: no random retry), aligner off."""
+    gen = engine.generator
+    saved = engine.aligner, engine.config.max_new_tokens, gen.block
+    engine.aligner, engine.config.max_new_tokens, gen.block = (None, BATCH_NEW_TOKENS,
+                                                               BATCH_NEW_TOKENS)
+    try:
+        res, logits = recorded_greedy(torch, lambda: engine.asr(
+            audio, context="", language="Chinese", temperature=0.0))
+    finally:
+        engine.aligner, engine.config.max_new_tokens, gen.block = saved
+    return res.text, [r[2] for r in logits], logits
+
+
+INT8_KV_NOISE_REL = 0.02  # of the top logit; one int8 KV step is 1/127 of a head's amax
+
+
+def int8_kv_verdict(phase: str, ref_text: str, ref: list, got_text: str, got: list,
+                    limit: int) -> dict:
+    """The near-tie rule where both runs quantize their K and V to int8 per
+    (slot, head): a rank's bf16 partial sums move some values across an
+    int8 rounding step, so the logits of two runs on the same tokens differ
+    by more than bf16 rounding. `ref` / `got` are `recorded_products` rows
+    per fed token. Let eps be INT8_KV_NOISE_REL of the reference's largest
+    top logit. Over the steps where the tokens agree, the two runs' top
+    logits must agree within eps; where the tokens part, the token `got`
+    chose must be among the reference's top four and within 2 eps of the
+    reference's top logit (two logits that each move by at most eps can
+    swap only so close). Raises otherwise."""
+    n = min(len(ref), len(got), limit)
+    first = next((i for i in range(n) if ref[i][2] != got[i][2]), None)
+    same = range(n if first is None else first)
+    noise = max((abs(ref[j][0] - got[j][0]) for j in same), default=0.0)
+    scale = max(abs(r[0]) for r in ref[:n])
+    eps = INT8_KV_NOISE_REL * scale
+    row = {"texts_equal": ref_text == got_text, "tokens_compared": n,
+           "first_differing_step": first, "top1_noise": noise, "noise_limit": eps}
+    require(n > 0 and ref_text and got_text, f"{phase}: no tokens")
+    require(noise <= eps,
+            f"{phase}: top logits differ by {noise} on the same tokens (> {row['noise_limit']})")
+    require(first is not None or ref_text == got_text,
+            f"{phase}: equal tokens but different texts")
+    if first is not None:
+        r, g = ref[first], got[first]
+        row.update(ref_top4=r[3], ref_top4_logits=r[4], got_token=g[2],
+                   got_top4=g[3], got_top4_logits=g[4], gap_limit=2 * eps)
+        require(g[2] in r[3], f"{phase}: tokens part at step {first} outside the reference's "
+                              f"top four: {row}")
+        row["gap"] = r[0] - r[4][r[3].index(g[2])]
+        require(row["gap"] <= row["gap_limit"],
+                f"{phase}: tokens part at step {first} on a token {row['gap']} below the "
+                f"reference's top (limit {row['gap_limit']})")
+    return row
+
+
+def tone_requests(seconds: float = SERVE_CLIP_SECONDS):
+    return [tone(seconds, f) for f in (220.0, 330.0)]
+
+
+def lockstep_batcher_run(torch, engine) -> dict:
+    """Two greedy 10 s tones through a ContinuousBatcher on `engine` (the
+    lockstep loop under a mesh: rank 0 submits, the others follow); per rank
+    the texts (rank 0), kernels 3 and 5's launches and the rows steps."""
+    from qwen3_asr_gguf_tpu_torch.ops import attn, q4k
+    from qwen3_asr_gguf_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    wrappers = (q4k.q4k_matmul_rows, attn.gqa_rows_q8_attention)
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.time()
+    cb = ContinuousBatcher(engine, max_batch=2, block=TP_NEW_TOKENS,
+                           max_new_tokens=TP_NEW_TOKENS)
+    texts, streams = None, None
+    if cb.leader:
+        try:
+            texts, products = recorded_products(torch, lambda: [
+                cb.submit(a, language="English", temperature=0.0, timeout=600.0).text
+                for a in tone_requests()])
+        finally:
+            cb.close()
+        # one request at a time (submit waits): its staging prefill is a
+        # one-row product, then it is row 0 of each rows step
+        streams = []
+        for rows in products:
+            if len(rows) == 1:
+                streams.append([rows[0]])
+            else:
+                streams[-1].append(rows[0])
+    else:
+        cb.follow()
+    torch.cuda.synchronize()
+    return {"texts": texts, "streams": streams, "rows": cb.b,
+            "steps": cb.stats["n_blocks"] * cb.block,
+            "launches": {w.__name__: w.launches for w in wrappers},
+            "seconds": time.time() - t0}
+
+
+def tp_engine(torch, model_dir: str, mesh_shape, dev, kv: str = "bf16"):
+    from qwen3_asr_gguf_tpu_torch import ASREngineConfig, QwenASREngine
+
+    return QwenASREngine(ASREngineConfig(
+        model_dir=model_dir, llm_fn="qwen3_asr_llm.q4_k.gguf", precision="int4", n_ctx=2048,
+        chunk_size=40.0, memory_num=1, verbose=False, max_new_tokens=96, decode_block=96,
+        kv_prefix_reuse=True, kv_cache_dtype=kv, enable_aligner=False, mesh_shape=mesh_shape,
+    ), device=dev)
+
+
+def _rank_setup():
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return torch
+
+
+def train_config(layers: int | None = None):
+    import dataclasses
+
+    from qwen3_asr_gguf_tpu_torch import preset
+
+    cfg = preset(PRESET)
+    if layers is not None:
+        cfg = dataclasses.replace(
+            cfg, audio=dataclasses.replace(cfg.audio, encoder_layers=layers),
+            text=dataclasses.replace(cfg.text, num_layers=layers))
+    return cfg
+
+
+def train_batch(cfg):
+    """B = 2, TRAIN_MEL_SECONDS of mel, the audio tokens at slots 1 .. Ta and
+    32 text tokens after them."""
+    from qwen3_asr_gguf_tpu_torch.models.encoder import get_feat_extract_output_lengths
+    from qwen3_asr_gguf_tpu_torch.parallel import train as T
+
+    t_mel = int(TRAIN_MEL_SECONDS * 100)
+    n_audio = get_feat_extract_output_lengths(t_mel, cfg.audio.n_window)
+    return T.thinker_batch(cfg, 2, t_mel, n_audio + 33, n_audio, seed=0)
+
+
+def _world_one_rank(rank, world, device, model_dir, audio, ref_path):
+    """The NCCL world of one rank: the engine at mesh {"model": 1} on the
+    clip (tp_engine_nccl), the lockstep batcher's single-rank references at
+    bf16 and int8 KV, the full-depth train step, and the 2-layer train
+    reference for tp_train."""
+    torch = _rank_setup()
+    from qwen3_asr_gguf_tpu_torch.parallel import sharding as S
+    from qwen3_asr_gguf_tpu_torch.parallel import train as T
+
+    dev = torch.device(device)
+    out = {"backend": torch.distributed.get_backend()}
+    t0 = time.time()
+    engine = tp_engine(torch, model_dir, {"model": 1}, dev)
+    out["engine_init_s"] = time.time() - t0
+    layer = engine.generator.params["layers"][0]
+    out["unfused"] = "q_proj" in layer and "qkv_proj" not in layer
+    t0 = time.time()
+    out["text"], out["tokens"], _ = greedy_clip(torch, engine, audio)
+    out["clip_s"] = time.time() - t0
+    out["batcher_bf16"] = lockstep_batcher_run(torch, engine)
+    del engine
+    engine = tp_engine(torch, model_dir, {"model": 1}, dev, kv="int8")
+    out["batcher_int8"] = lockstep_batcher_run(torch, engine)
+    del engine
+    torch.cuda.empty_cache()
+
+    cfg = train_config()
+    mesh = S.make_mesh({"model": 1})
+    init_fn, step_fn = T.make_train_step(cfg, mesh, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    state = init_fn(0)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    batch = train_batch(cfg)
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.time()
+        state, loss = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        losses.append(loss)
+    n_params = sum(t.numel() for _, t in T._leaves(state.params))
+    out["train"] = {"layers": cfg.text.num_layers, "encoder_layers": cfg.audio.encoder_layers,
+                    "params": n_params, "init_s": init_s, "losses": losses, "step_s": step_s,
+                    "peak_gpu_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                    "batch": {k: list(v.shape) for k, v in batch.items()}}
+    del state
+    torch.cuda.empty_cache()
+
+    cut = train_config(TRAIN_CUT_LAYERS)
+    init_fn, step_fn = T.make_train_step(cut, mesh, device=dev)
+    state = init_fn(1)
+    batch = train_batch(cut)
+    state, loss1 = step_fn(state, batch)
+    grads = {name: t.grad.detach().cpu().clone() for name, t in T._leaves(state.params)}
+    state, loss2 = step_fn(state, batch)
+    torch.save({"losses": [loss1, loss2], "grads": grads}, ref_path)
+    out["train_cut_losses"] = [loss1, loss2]
+    return out
+
+
+def _tp_world_rank(rank, world, device, model_dir, ref_path, ckpt_path):
+    """A gloo world of TP ranks on cuda:0: tp_decode, sp_encode, tp_batcher
+    and tp_train."""
+    torch = _rank_setup()
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+    from qwen3_asr_gguf_tpu_torch.models import encoder as enc
+    from qwen3_asr_gguf_tpu_torch.models import params as P
+    from qwen3_asr_gguf_tpu_torch.ops import attn, q4k
+    from qwen3_asr_gguf_tpu_torch.parallel import dryrun as D
+    from qwen3_asr_gguf_tpu_torch.parallel import sharding as S
+    from qwen3_asr_gguf_tpu_torch.parallel import train as T
+    from qwen3_asr_gguf_tpu_torch.runtime.generate import Generator
+
+    dev = torch.device(device)
+    mesh = S.make_mesh({"model": world})
+    out = {}
+
+    # tp_decode: the 1.7B decoder's widths at 2 layers, f32, vocab 151,936
+    t0 = time.time()
+    flag = D.flagship_text()
+    params = random_tree(torch, dec.init_shapes(flag), 2, dev)
+    prompt = D.spliced_prompt(flag, 3)
+    single = D.generator_tokens(params, flag, prompt, device=dev)
+    tp_toks = D.generator_tokens(params, flag, prompt, mesh=mesh, device=dev)
+    del params
+    torch.cuda.empty_cache()
+    out["f32"] = {"single": single, "tp": tp_toks, "seconds": time.time() - t0}
+
+    # packed int4 at the same widths: the 1.7B q4_k GGUF's first 2 layers and its head
+    t0 = time.time()
+    import dataclasses
+
+    cfg4, p4, _ = P.load_decoder_gguf(f"{model_dir}/qwen3_asr_llm.q4_k.gguf", precision="int4",
+                                      device=dev)
+    cfg4 = dataclasses.replace(cfg4, num_layers=2)
+    p4 = dict(p4, layers=p4["layers"][:2])
+    torch.cuda.empty_cache()
+    prompt4 = D.spliced_prompt(cfg4, 4)
+
+    def run4(gen):
+        st_ = gen.start_spliced(prompt4[0], prompt4[1], prompt4[2].to(dev, torch.bfloat16),
+                                temperature=0.0, seed=5)
+        for w in (q4k.q4k_matvec, attn.gqa_decode_attention):
+            w.launches = 0
+        toks, _, _, _ = gen.decode_block(st_, temperature=0.0)
+        torch.cuda.synchronize()
+        return toks, {w.__name__: w.launches for w in (q4k.q4k_matvec, attn.gqa_decode_attention)}
+
+    gen1 = Generator(p4, cfg4, n_ctx=512, block=8, cache_dtype=torch.bfloat16, device=dev)
+    (single4, _), logits4 = recorded_greedy(torch, lambda: run4(gen1))
+    del gen1
+    gen2 = Generator(p4, cfg4, n_ctx=512, block=8, cache_dtype=torch.bfloat16, device=dev,
+                     mesh=mesh)
+    tiles = {n: list(w.shape) for n, w in gen2.params["layers"][0].items() if hasattr(w, "sub_t")}
+    tiles["lm_head"] = list(gen2.params["lm_head"].shape)
+    tp4, launches4 = run4(gen2)
+    del gen2, p4
+    torch.cuda.empty_cache()
+    out["int4"] = {"single": single4, "tp": tp4, "launches": launches4, "tiles": tiles,
+                   "single_logits": logits4, "seconds": time.time() - t0}
+
+    # sp_encode: the 1.7B encoder's widths, SP_LAYERS layers, SP_WINDOWS windows
+    t0 = time.time()
+    ecfg = dataclasses.replace(train_config().audio, encoder_layers=SP_LAYERS,
+                               attention_mode="windowed")
+    eparams = random_tree(torch, enc.init_shapes(ecfg), 4, dev)
+    win = ecfg.tokens_per_window * (ecfg.n_window_infer // ecfg.n_window)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    hidden = torch.randn((SP_WINDOWS * win, ecfg.d_model), generator=g, device=dev) * 0.1
+    whole = enc.backend_transformer(eparams, ecfg, hidden)
+    split = enc.backend_transformer(eparams, ecfg, hidden, sp_group=mesh.get_group("model"))
+    torch.cuda.synchronize()
+    diff = (split - whole).abs()
+    out["sp"] = {"windows": SP_WINDOWS, "tokens": SP_WINDOWS * win, "layers": SP_LAYERS,
+                 "max_abs_diff": diff.max().item(),
+                 "within": bool(torch.all(diff <= SP_ATOL + SP_RTOL * whole.abs())),
+                 "seconds": time.time() - t0}
+    del eparams, whole, split
+    torch.cuda.empty_cache()
+
+    # tp_batcher: the 1.7B int4 checkpoint at full depth, bf16 and int8 KV
+    for kv in ("bf16", "int8"):
+        t0 = time.time()
+        engine = tp_engine(torch, model_dir, {"model": world}, dev, kv=kv)
+        init_s = time.time() - t0
+        out[f"batcher_{kv}"] = {**lockstep_batcher_run(torch, engine), "engine_init_s": init_s,
+                                "layers": engine.dec_cfg.num_layers}
+        del engine
+        torch.cuda.empty_cache()
+
+    # tp_train: the 2-layer cut against the world of one, then a checkpoint round trip
+    t0 = time.time()
+    cut = train_config(TRAIN_CUT_LAYERS)
+    init_fn, step_fn = T.make_train_step(cut, mesh, device=dev)
+    state = init_fn(1)
+    batch = train_batch(cut)
+    state, loss1 = step_fn(state, batch)
+    ref = torch.load(ref_path, map_location="cpu", weights_only=True)
+    specs = [s for _, s in T._leaves(T.thinker_param_specs(cut))]
+    rank_m, n_m = S.mesh_dim(mesh, "model")
+    worst = 0.0
+    for (name, leaf), spec in zip(T._leaves(state.params), specs):
+        want = S.split_leaf(ref["grads"][name], spec, rank_m, n_m).to(dev)
+        err = (leaf.grad - want).abs().max().item()
+        if want.abs().max().item() > 1e-8:  # a leaf whose gradient is 0 (the key bias) aside
+            worst = max(worst, err / want.abs().max().item())
+        if err > TRAIN_GRAD_REL * want.abs().max().item() + 1e-9:
+            raise RuntimeError(f"tp_train: gradient {name} off by {err} "
+                               f"(largest entry {want.abs().max().item()})")
+    del ref
+    T.save_checkpoint(ckpt_path, state, cut, mesh)
+    back = T.restore_checkpoint(ckpt_path, init_fn(7), cut, mesh)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(T._leaves(state.params),
+                                                           T._leaves(back.params)))
+    state, loss2 = step_fn(state, batch)
+    out["train"] = {"losses": [loss1, loss2], "grad_worst_rel": worst,
+                    "checkpoint_params_equal": same, "checkpoint_step": back.step,
+                    "seconds": time.time() - t0}
+    return out
+
+
+def tp_phases(torch, dev, model_dir: Path, audio, engine_greedy: tuple) -> dict:
+    """tp_engine_nccl, tp_decode, sp_encode, tp_batcher and train_step: the
+    NCCL world of one rank, then the gloo world of TP ranks on this card."""
+    from qwen3_asr_gguf_tpu_torch.ops import q4k
+    from qwen3_asr_gguf_tpu_torch.parallel.launch import spawn
+
+    work = REPO / ".bench_cache" / "torch" / "tp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cuda0 = lambda r: "cuda:0"  # noqa: E731
+    t0 = time.time()
+    one = spawn(_world_one_rank, 1, "nccl", cuda0, str(work / "world1"),
+                args=(str(dev), str(model_dir), audio, str(work / "train_ref.pt")), threads=8,
+                timeout=1100)[0]
+    world_one_s = time.time() - t0
+
+    text, tokens, logits = engine_greedy
+    verdict = near_tie_verdict("tp_engine_nccl", text, tokens, logits, one["text"],
+                               one["tokens"], limit=len(tokens))
+    row = {"phase": "tp_engine_nccl", "backend": one["backend"], "mesh": {"model": 1},
+           "unfused": one["unfused"], "engine_init_s": one["engine_init_s"],
+           "clip_s": one["clip_s"], "audio_s": CLIP_SECONDS, "new_tokens_per_chunk":
+           BATCH_NEW_TOKENS, "engine_text": text, "mesh_text": one["text"], **verdict}
+    emit(row)
+    require(one["backend"] == "nccl" and one["unfused"], f"tp_engine_nccl: {row}")
+
+    tr = one["train"]
+    row = {"phase": "train_step", "world": 1, "backend": "nccl", **tr,
+           "params_gb_f32": tr["params"] * 4 / 1e9}
+    emit(row)
+    require(all(math.isfinite(x) for x in tr["losses"]) and tr["losses"][-1] < tr["losses"][0],
+            f"train_step: losses {tr['losses']}")
+
+    t0 = time.time()
+    ranks = spawn(_tp_world_rank, TP, "gloo", cuda0, str(work / "world2"),
+                  args=(str(dev), str(model_dir), str(work / "train_ref.pt"), str(work / "ckpt.pt")),
+                  threads=4, timeout=1100)
+    tp_world_s = time.time() - t0
+    lead = ranks[0]
+    f32, i4 = lead["f32"], lead["int4"]
+    steps4 = len(i4["tp"])
+    int4_verdict = near_tie_verdict("tp_decode/int4", str(i4["single"]), i4["single"],
+                                    i4["single_logits"], str(i4["tp"]), i4["tp"], limit=steps4)
+    row = {"phase": "tp_decode", "tp": TP, "backend": "gloo (CUDA tensors taken directly)",
+           "f32_vocab": 151936, "f32_single": f32["single"], "f32_tp": f32["tp"],
+           "f32_s": f32["seconds"], "int4_single": i4["single"], "int4_tp": i4["tp"],
+           "int4_tiles": i4["tiles"], "int4_s": i4["seconds"],
+           "int4_launches_per_rank": [r["int4"]["launches"] for r in ranks],
+           "int4_near_tie": int4_verdict, "ranks_equal": all(
+               (r["f32"]["tp"], r["int4"]["tp"]) == (f32["tp"], i4["tp"]) for r in ranks),
+           "world_s": tp_world_s, "world_one_s": world_one_s}
+    emit(row)
+    require(f32["single"] == f32["tp"] and len(f32["tp"]) == 8, f"tp_decode f32: {row}")
+    require(row["ranks_equal"], "tp_decode: the ranks emitted different tokens")
+    for r in ranks:
+        got = r["int4"]["launches"]
+        require(got == {"q4k_matvec": 15 * steps4, "gqa_decode_attention": 2 * steps4},
+                f"tp_decode int4: launches {got} for {steps4} steps")
+
+    sp = lead["sp"]
+    emit({"phase": "sp_encode", "tp": TP, **sp, "bound": f"atol {SP_ATOL}, rtol {SP_RTOL}"})
+    require(all(r["sp"]["within"] for r in ranks), f"sp_encode: {sp}")
+
+    for kv in ("bf16", "int8"):
+        ref, got = one[f"batcher_{kv}"], lead[f"batcher_{kv}"]
+        per_step = 7 * got["layers"] + 1
+        # each request's fed tokens against the world of one's, by the near-tie
+        # rule (bf16 KV) or its int8-KV twin
+        verdicts = []
+        for j in range(len(ref["texts"])):
+            what = f"tp_batcher {kv} request {j}"
+            if kv == "int8":
+                verdicts.append(int8_kv_verdict(what, ref["texts"][j], ref["streams"][j],
+                                                got["texts"][j], got["streams"][j],
+                                                TP_NEW_TOKENS))
+            else:
+                verdicts.append(near_tie_verdict(
+                    what, ref["texts"][j], [r[2] for r in ref["streams"][j]],
+                    ref["streams"][j], got["texts"][j], [r[2] for r in got["streams"][j]],
+                    limit=TP_NEW_TOKENS))
+        row = {"phase": "tp_batcher", "tp": TP, "kv": kv, "single_texts": ref["texts"],
+               "tp_texts": got["texts"], "verdicts": verdicts, "rows": got["rows"],
+               "steps": got["steps"],
+               "launches_per_rank": [r[f"batcher_{kv}"]["launches"] for r in ranks],
+               "per_step_q4k_matmul_rows": per_step, "engine_init_s": got["engine_init_s"],
+               "seconds": got["seconds"]}
+        emit(row)
+        require(all(got["texts"]), f"tp_batcher {kv}: an empty transcript")
+        for r in ranks:
+            b = r[f"batcher_{kv}"]
+            require(b["steps"] > 0 and b["launches"]["q4k_matmul_rows"] == per_step * b["steps"],
+                    f"tp_batcher {kv}: {b}")
+            if kv == "int8":
+                require(b["launches"]["gqa_rows_q8_attention"] == got["layers"] * b["steps"],
+                        f"tp_batcher int8: {b}")
+
+    tt = lead["train"]
+    ref_losses = one["train_cut_losses"]
+    row = {"phase": "train_step", "world": TP, "backend": "gloo", "layers": TRAIN_CUT_LAYERS,
+           **tt, "world_one_losses": ref_losses,
+           "bound": f"loss rel {TRAIN_LOSS_REL}; each gradient leaf <= {TRAIN_GRAD_REL} x its "
+                    "largest entry + 1e-9"}
+    emit(row)
+    require(abs(tt["losses"][0] - ref_losses[0]) <= TRAIN_LOSS_REL * abs(ref_losses[0]),
+            f"tp_train: losses {tt['losses']} vs {ref_losses}")
+    require(tt["checkpoint_params_equal"] and tt["checkpoint_step"] == 1, f"tp_train: {tt}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"q4k_matvec": lead["int4"]["launches"]["q4k_matvec"],
+            "gqa_decode_attention": lead["int4"]["launches"]["gqa_decode_attention"],
+            "q4k_matmul_rows": lead["batcher_bf16"]["launches"]["q4k_matmul_rows"],
+            "gqa_rows_q8_attention": lead["batcher_int8"]["launches"]["gqa_rows_q8_attention"]}
 
 
 def main() -> int:
@@ -2367,6 +3006,7 @@ def main() -> int:
     for kv in (torch.bfloat16, torch.int8):
         rows_step_check(torch, engine, kv)
     batcher_vs_engine_phase(torch, engine, audio)
+    engine_greedy = greedy_clip(torch, engine, audio)  # tp_engine_nccl's reference
     del engine
     torch.cuda.empty_cache()
 
@@ -2385,6 +3025,8 @@ def main() -> int:
     demo_streaming_phase(torch, dev, model_dir)
     verify_weights_phase(torch, dev)
     examples_phase(torch, dev, model_dir)
+    kernel_rows += tp_kernel_phase(torch, dev, cfg.text)
+    tp_launches = tp_phases(torch, dev, model_dir, audio, engine_greedy)
     device_kernels_phase(torch, dev, cfg.text)
     # each kernel's launches from the run of its own path
     launches["q4k_matmul_rows"] = served["launches"]["q4k_matmul_rows"]
@@ -2398,9 +3040,10 @@ def main() -> int:
              "fused_mlp_matvec": "asr_int8 (temperature 0.4)"}
 
     def case(r):
+        tp = f"tp{r['tp']} " if "tp" in r else ""
         if "t" in r:
-            return f"{r['shape']}/T={r['t']}"
-        return r.get("shape") or f"win={r['win']}"
+            return f"{tp}{r['shape']}/T={r['t']}"
+        return tp + (r.get("shape") or f"win={r['win']}")
 
     def total(rows, key):
         return None if any(r[key] is None for r in rows) else sum(r[key] for r in rows)
@@ -2414,12 +3057,14 @@ def main() -> int:
         # kernels at the 1024-slot window, q4_matmul at T = 1 (the decode
         # step), the fused MLP at the 1.7B shape
         main_t = 1 if name == "q4_matmul" else ROWS_T[0]
-        summed = [r for r in mine if r.get("t", main_t) == main_t
+        summed = [r for r in mine if r.get("t", main_t) == main_t and "tp" not in r
                   and r.get("win", ATTN_HEADLINE_WIN) == ATTN_HEADLINE_WIN
                   and r.get("hidden", cfg.text.hidden_size) == cfg.text.hidden_size]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name], "path": paths[name],
+            # per rank, in the tp = 2 phases (tp_decode: one decode block; tp_batcher)
+            "tp_launches": tp_launches.get(name),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             **{key: total(summed, key) for key in timed},
             "bound_by": summed[0]["bound_by"],

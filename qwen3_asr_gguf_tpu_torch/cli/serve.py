@@ -1,6 +1,8 @@
 """OpenAI-compatible transcription server on the PyTorch port.
 
     python -m qwen3_asr_gguf_tpu_torch.cli.serve --model-dir DIR [--device cuda|cpu]
+    torchrun --nproc-per-node N -m qwen3_asr_gguf_tpu_torch.cli.serve --model-dir DIR \\
+        --mesh model=N
 
 The HTTP surface is `cli/http.py` (`ASRServer`, `make_handler`,
 `parse_multipart`, the port's copy of the JAX package's):
@@ -16,9 +18,12 @@ outside continuous mode `--prec int4` runs at int8, as in the JAX package.
 `--timestamp` loads the forced aligner (`qwen3_aligner_*` beside the
 decoder): srt, vtt and verbose_json answers carry word times, aligned on the
 continuous batcher's align pool. `--device` names the torch device; there is
-no fallback to another one. `--mesh` is not ported yet and raises
-NotImplementedError (ROADMAP.md Queue 1, item 7). `--prewarm` is left out:
-PyTorch has no programs to load before traffic.
+no fallback to another one. `--mesh model=N` serves tensor-parallel over the
+ranks of a `torchrun` launch (NCCL, one card per rank; gloo with `--device
+cpu`): rank 0 listens and runs admission, and the other ranks follow the
+continuous batcher's lockstep loop (`ContinuousBatcher.follow`); under a
+mesh only `--batch-mode continuous` with `--max-batch` > 1 serves.
+`--prewarm` is left out: PyTorch has no programs to load before traffic.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from http.server import ThreadingHTTPServer
 
 from .device import cli_device
 from .http import ASRServer, make_handler
-from .transcribe import _resolve_llm_fn
+from .transcribe import _resolve_llm_fn, parse_mesh
 
 MODEL_NAME = "qwen3-asr-torch"
 
@@ -49,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="micro-batch gather window seconds (0 disables batching)")
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--mesh", default=None,
-                   help="TP-shard the decoder over a device mesh (not ported yet)")
+                   help="TP-shard the decoder over the torchrun ranks, e.g. 'model=2'")
     p.add_argument("--batch-mode", choices=["continuous", "micro", "off"],
                    default="continuous",
                    help="continuous = per-request admission into free decode rows; "
@@ -65,10 +70,15 @@ def build_from_args(args: argparse.Namespace, **engine_config):
     from ..runtime.engine import QwenASREngine
     from ..schema import AlignerConfig, ASREngineConfig
 
-    if args.mesh:
-        raise NotImplementedError("--mesh: tensor-parallel serving is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 7)")
     device = cli_device(args.device, "the server")
+    mesh_shape = parse_mesh(args.mesh)
+    if mesh_shape:
+        if args.batch_mode != "continuous" or args.max_batch < 2:
+            raise ValueError("--mesh serves through the continuous batcher: "
+                             "--batch-mode continuous with --max-batch > 1")
+        from ..parallel.launch import init_from_env
+
+        init_from_env("gloo" if device.type == "cpu" else "nccl")
     llm_fn = args.llm_fn or _resolve_llm_fn(args.model_dir, args.prec)
     precision = {"f16": "bf16"}.get(args.prec, args.prec)
     if precision == "int4" and args.max_batch > 1 and args.batch_mode != "continuous":
@@ -81,7 +91,7 @@ def build_from_args(args: argparse.Namespace, **engine_config):
     cfg = ASREngineConfig(
         model_dir=args.model_dir, llm_fn=llm_fn, precision=precision,
         n_ctx=args.n_ctx, chunk_size=args.chunk_size, verbose=False,
-        enable_aligner=args.timestamp,
+        enable_aligner=args.timestamp, mesh_shape=mesh_shape,
     )
     if args.timestamp:
         cfg.align_config = AlignerConfig(
@@ -112,6 +122,9 @@ def build(argv=None, **engine_config):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     server, _, batcher = build_from_args(args)
+    if batcher is not None and batcher.lockstep and not batcher.leader:
+        batcher.follow()  # returns when rank 0 closes its batcher
+        return 0
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server))
     print(f"listening on http://{args.host}:{args.port}  (POST /v1/audio/transcriptions)")
     try:

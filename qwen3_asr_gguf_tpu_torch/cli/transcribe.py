@@ -3,13 +3,18 @@
 
     python -m qwen3_asr_gguf_tpu_torch.cli.transcribe a.wav [b.wav ...] --model-dir DIR \\
         [--prec int4|q4_k|int8|bf16|f16|f32] [--timestamp] [--device cuda|cpu]
+    torchrun --nproc-per-node N -m qwen3_asr_gguf_tpu_torch.cli.transcribe a.wav \\
+        --model-dir DIR --mesh model=N
 
 The JAX package's flags: several input files, precision, forced language,
 context prompt, time window, chunk and memory control, and with
 `--timestamp` forced alignment written as `.srt` and `.json` beside the
 `.txt`. `--dml` and `--vulkan` are accepted and do nothing. `--device`
-names the torch device; there is no fallback to another one. `--mesh` is
-not ported yet (ROADMAP.md Queue 1, item 7).
+names the torch device; there is no fallback to another one. `--mesh
+model=N` (or `data=D,model=N`) runs the decoder tensor-parallel over the
+ranks of a `torchrun` launch (NCCL, each rank on its card cuda:LOCAL_RANK;
+gloo with `--device cpu`): every rank reads the inputs and transcribes, and
+rank 0 alone writes the output files.
 """
 
 from __future__ import annotations
@@ -51,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dml", action="store_true", help=argparse.SUPPRESS)  # no-op
     p.add_argument("--vulkan", action="store_true", help=argparse.SUPPRESS)  # no-op
     p.add_argument("--quiet", action="store_true")
-    p.add_argument("--mesh", default=None, help="TP-shard the decoder (not ported yet)")
+    p.add_argument("--mesh", default=None,
+                   help="TP-shard the decoder over the torchrun ranks, e.g. 'model=2'")
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
     return p
 
@@ -76,12 +82,33 @@ def _resolve_llm_fn(model_dir: str, prec: str) -> str:
     return fn
 
 
+def parse_mesh(spec):
+    """'data=2,model=4' -> {"data": 2, "model": 4} (None passes through)."""
+    if not spec:
+        return None
+    out = {}
+    for part in spec.split(","):
+        name, _, num = part.partition("=")
+        out[name.strip()] = int(num)
+    return out
+
+
+def _is_writer() -> bool:
+    """Whether this process writes output files: rank 0 of a world, or the
+    only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh: tensor-parallel inference is not ported yet "
-                                  "(ROADMAP.md Queue 1, item 7)")
     device = cli_device(args.device)
+    mesh_shape = parse_mesh(args.mesh)
+    if mesh_shape:
+        from ..parallel.launch import init_from_env
+
+        init_from_env("gloo" if device.type == "cpu" else "nccl")
 
     model_dir = args.model_dir
     llm_fn = _resolve_llm_fn(model_dir, args.prec)
@@ -111,8 +138,9 @@ def main(argv=None) -> int:
         n_ctx=args.n_ctx,
         chunk_size=args.chunk_size,
         memory_num=args.memory_num,
-        verbose=not args.quiet,
+        verbose=not args.quiet and _is_writer(),
         enable_aligner=args.timestamp,
+        mesh_shape=mesh_shape,
     )
     if args.timestamp:
         aligner_llm = llm_fn.replace("asr", "aligner")
@@ -148,8 +176,11 @@ def main(argv=None) -> int:
             out_base = path.with_suffix("")
         out_txt = out_base.with_suffix(".txt")
         if out_txt.exists() and not args.overwrite:
-            resp = input(f"{out_txt} exists; overwrite? [y/N] ").strip().lower()
-            if resp != "y":
+            from ..parallel.collectives import broadcast_object
+
+            # rank 0 asks; the other ranks follow its answer
+            resp = input(f"{out_txt} exists; overwrite? [y/N] ") if _is_writer() else ""
+            if broadcast_object(resp.strip().lower()) != "y":
                 continue
         if not args.quiet:
             print(f"\n=== {f} ===")
@@ -162,6 +193,8 @@ def main(argv=None) -> int:
             temperature=args.temperature,
             rollback_num=args.rollback_num,
         )
+        if not _is_writer():
+            continue
         exporters.export_to_txt(str(out_txt), result)
         print(f"wrote {out_txt}", file=sys.stderr)
         if args.timestamp and result.alignment:

@@ -13,6 +13,15 @@ The KV cache is {"k": [L x [S, Hkv, hd]], "v": [...]}, updated in place; an
 int8 cache adds f32 per-(slot, head) scales {"k_s": [L x [S, Hkv]], "v_s"}.
 The batched serving step (`forward_step_rows`) takes the same layout with a
 leading row axis: [B, S, Hkv, hd] and [B, S, Hkv].
+
+Tensor parallelism (`tp_group`, a process group; None runs the whole
+model): the weights are one rank's Megatron tiles (`parallel.sharding`), the
+config is the local one (heads and kv heads over tp) and the KV cache holds
+the local kv heads. Each layer then ends its o_proj and down_proj partial
+products in one all-reduce each, the only collectives of a layer, as in the
+JAX package's `tp_axis`; `lm_logits` gathers the vocab tiles. The
+collectives are autograd-aware (`parallel.collectives`), so the same
+forward trains under tensor parallelism.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch.nn.functional as F
 from ..ops import attn as attn_ops
 from ..ops import mlp as mlp_ops
 from ..ops.qtensor import Int8Weight, matmul, matmul_normed
+from ..parallel.collectives import copy_to_tp, gather_from_tp, reduce_from_tp
 from .configs import TextDecoderConfig
 
 Params = dict[str, Any]
@@ -165,12 +175,13 @@ def _read_cache_window(cache: dict, l: int, win: int, dtype) -> tuple[torch.Tens
 
 
 def _layer_qkv(layer: Params, cfg: TextDecoderConfig, x: torch.Tensor, cos, sin,
-               pre_norm: tuple | None = None):
+               pre_norm: tuple | None = None, tp_group=None):
     """pre_norm=(weight, eps): x is the raw residual stream and the rms_norm
     fuses into the qkv matvec kernel where supported (decode step)."""
     if pre_norm is not None and "qkv_proj" not in layer:
         x = rms_norm(x, *pre_norm)
         pre_norm = None
+    x = copy_to_tp(x, tp_group)
     t = x.shape[0]
     hd = cfg.head_dim
     nq = cfg.num_heads * hd
@@ -206,15 +217,17 @@ def _can_fuse_mlp(layer: Params, x: torch.Tensor) -> bool:
 
 
 def _mlp(layer: Params, x: torch.Tensor, pre_norm: tuple | None = None, *,
-         fused_kernel: bool = False) -> torch.Tensor:
+         fused_kernel: bool = False, tp_group=None) -> torch.Tensor:
     """`fused_kernel`: the whole MLP of one token through
     `ops.mlp.fused_mlp_matvec` (each int8 weight read once); the rms_norm is
     then applied first, not fused into a matvec. Only the single-stream
     decode step asks for it, on layers from `split_mlp_weights`; a layer it
-    cannot take is an error, not a quiet unfused MLP."""
+    cannot take is an error, not a quiet unfused MLP. Under `tp_group` the
+    down_proj partial product ends in the layer's second all-reduce."""
     if pre_norm is not None and ("gateup_proj" not in layer or fused_kernel):
         x = rms_norm(x, *pre_norm)
         pre_norm = None
+    x = copy_to_tp(x, tp_group)
     if fused_kernel:
         if not _can_fuse_mlp(layer, x):
             raise ValueError("fused MLP asked for on a layer it cannot take (needs split int8 "
@@ -232,25 +245,27 @@ def _mlp(layer: Params, x: torch.Tensor, pre_norm: tuple | None = None, *,
         gate = matmul(x, layer["gate_proj"])
         up = matmul(x, layer["up_proj"])
     act = F.silu(gate.float()).to(x.dtype) * up
-    return matmul(act, layer["down_proj"])
+    return reduce_from_tp(matmul(act, layer["down_proj"]), tp_group)
 
 
-def _block(layer: Params, cfg: TextDecoderConfig, h, cos, sin, keys, values, mask, scale):
+def _block(layer: Params, cfg: TextDecoderConfig, h, cos, sin, keys, values, mask, scale,
+           tp_group=None):
     """Prefill block body; `keys`/`values` map this layer's fresh (k, v) to
     the key/value sequence attended to. Returns (h, k, v)."""
     t = h.shape[0]
     attn_in = rms_norm(h, layer["attn_norm"], cfg.rms_norm_eps)
-    q, k, v = _layer_qkv(layer, cfg, attn_in, cos, sin)
+    q, k, v = _layer_qkv(layer, cfg, attn_in, cos, sin, tp_group=tp_group)
     attn = _gqa_attention(q, keys(k), values(v), mask, scale)
-    h = h + matmul(attn.reshape(t, -1), layer["o_proj"])
+    h = h + reduce_from_tp(matmul(attn.reshape(t, -1), layer["o_proj"]), tp_group)
     mlp_in = rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps)
-    return h + _mlp(layer, mlp_in), k, v
+    return h + _mlp(layer, mlp_in, tp_group=tp_group), k, v
 
 
 def forward_prefill(params: Params, cfg: TextDecoderConfig, embd: torch.Tensor,
-                    cache: dict | None, *, length: int | None = None):
+                    cache: dict | None, *, length: int | None = None, tp_group=None):
     """Causal prefill from position 0 -> (hidden [T, D], cache). `length`
-    (<= T) masks padding keys; `cache=None` skips the KV writes."""
+    (<= T) masks padding keys; `cache=None` skips the KV writes (and keeps
+    the forward free of in-place writes, for autograd)."""
     t = embd.shape[0]
     scale = cfg.head_dim ** -0.5
     positions = torch.arange(t, device=embd.device)
@@ -260,7 +275,8 @@ def forward_prefill(params: Params, cfg: TextDecoderConfig, embd: torch.Tensor,
         mask = mask & (positions[None, :] < length)
     h = embd
     for l, layer in enumerate(params["layers"]):
-        h, k, v = _block(layer, cfg, h, cos, sin, lambda k: k, lambda v: v, mask, scale)
+        h, k, v = _block(layer, cfg, h, cos, sin, lambda k: k, lambda v: v, mask, scale,
+                         tp_group)
         if cache is not None:
             _write_cache(cache, l, slice(0, t), k, v)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
@@ -268,7 +284,7 @@ def forward_prefill(params: Params, cfg: TextDecoderConfig, embd: torch.Tensor,
 
 def forward_prefill_at(params: Params, cfg: TextDecoderConfig, embd: torch.Tensor,
                        cache: dict, start: int, *, prefix_window: int,
-                       length: int | None = None):
+                       length: int | None = None, tp_group=None):
     """Causal prefill of a suffix on top of a cache prefix: positions
     [start, start+T) attend to cache slots [0, start) and causally to the
     suffix; slots [start, prefix_window) are masked."""
@@ -290,7 +306,7 @@ def forward_prefill_at(params: Params, cfg: TextDecoderConfig, embd: torch.Tenso
             layer, cfg, h, cos, sin,
             lambda k: torch.cat([k_pre.to(k.dtype), k]),
             lambda v: torch.cat([v_pre.to(v.dtype), v]),
-            mask, scale,
+            mask, scale, tp_group,
         )
         _write_cache(cache, l, slice(start, start + t), k, v)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
@@ -321,7 +337,7 @@ def split_mlp_weights(layer_list: list[Params]) -> list[Params]:
 def forward_step_layers(layer_list: list[Params], final_norm: torch.Tensor,
                         cfg: TextDecoderConfig, embd: torch.Tensor, cache: dict,
                         pos: int, *, attn_window: int | None = None,
-                        fused_mlp: bool = False):
+                        fused_mlp: bool = False, tp_group=None):
     """One decode step for the token at `pos` (embd [D]): each layer writes
     its K/V at `pos` BEFORE attending to the first `attn_window` slots
     (slot <= pos). A bf16 or f32 cache attends through `ops.attn.
@@ -331,7 +347,9 @@ def forward_step_layers(layer_list: list[Params], final_norm: torch.Tensor,
     device once, for the rope and for every layer's attention (the kernel
     reads it there). An int8 cache keeps the plain attention on a
     dequantized window. `fused_mlp`: every layer's MLP through the fused int8
-    kernel (see `_mlp`). Returns (hidden [D], cache)."""
+    kernel (see `_mlp`). `tp_group`: local tiles and cache, two
+    all-reduces per layer (see the module docstring). Returns (hidden [D],
+    cache)."""
     s_max = cache["k"][0].shape[0]
     win = s_max if attn_window is None else min(attn_window, s_max)
     dev = embd.device
@@ -344,7 +362,8 @@ def forward_step_layers(layer_list: list[Params], final_norm: torch.Tensor,
     h = embd[None, :]
     eps = cfg.rms_norm_eps
     for l, layer in enumerate(layer_list):
-        q, k, v = _layer_qkv(layer, cfg, h, cos, sin, pre_norm=(layer["attn_norm"], eps))
+        q, k, v = _layer_qkv(layer, cfg, h, cos, sin, pre_norm=(layer["attn_norm"], eps),
+                             tp_group=tp_group)
         _write_cache(cache, l, pos, k[0], v[0])
         if int8_kv:
             k_win, v_win = _read_cache_window(cache, l, win, k.dtype)
@@ -352,8 +371,9 @@ def forward_step_layers(layer_list: list[Params], final_norm: torch.Tensor,
         else:
             attn = attn_ops.gqa_decode_attention(q, cache["k"][l], cache["v"][l], pos_t, scale,
                                                   win)
-        h = h + matmul(attn.reshape(1, -1), layer["o_proj"])
-        h = h + _mlp(layer, h, pre_norm=(layer["mlp_norm"], eps), fused_kernel=fused_mlp)
+        h = h + reduce_from_tp(matmul(attn.reshape(1, -1), layer["o_proj"]), tp_group)
+        h = h + _mlp(layer, h, pre_norm=(layer["mlp_norm"], eps), fused_kernel=fused_mlp,
+                     tp_group=tp_group)
     return rms_norm(h, final_norm, eps)[0], cache
 
 
@@ -389,7 +409,8 @@ def _gqa_attention_rows_q8(q, kw, ks, vw, vs, mask, scale):
 
 def forward_step_rows(layer_list: list[Params], final_norm: torch.Tensor,
                       cfg: TextDecoderConfig, embd: torch.Tensor, caches: dict,
-                      poss: torch.Tensor, *, attn_window: int | None = None):
+                      poss: torch.Tensor, *, attn_window: int | None = None,
+                      tp_group=None):
     """Batched decode step, one token per row (embd [B, D], poss [B] int64
     on the device, each a valid slot): activations stay [B, K], so a
     quantized weight streams once per step for all rows (`ops.q4k.
@@ -398,7 +419,8 @@ def forward_step_rows(layer_list: list[Params], final_norm: torch.Tensor,
     (slot <= pos). An int8 cache attends through `ops.attn.
     gqa_rows_q8_attention`: on the card it launches kernel 5 or raises (the
     window must pass `rows_q8_supported`); on the CPU it runs its plain
-    version. Returns (hidden [B, D], caches)."""
+    version. `tp_group`: local tiles and caches split on the kv heads, two
+    all-reduces per layer. Returns (hidden [B, D], caches)."""
     b = embd.shape[0]
     s_max = caches["k"][0].shape[1]
     win = s_max if attn_window is None else min(attn_window, s_max)
@@ -410,7 +432,8 @@ def forward_step_rows(layer_list: list[Params], final_norm: torch.Tensor,
     h = embd
     eps = cfg.rms_norm_eps
     for l, layer in enumerate(layer_list):
-        q, k, v = _layer_qkv(layer, cfg, rms_norm(h, layer["attn_norm"], eps), cos, sin)
+        q, k, v = _layer_qkv(layer, cfg, rms_norm(h, layer["attn_norm"], eps), cos, sin,
+                             tp_group=tp_group)
         _write_cache(caches, l, (rows, poss), k, v)
         k_c, v_c = caches["k"][l], caches["v"][l]
         if int8_kv:
@@ -418,16 +441,19 @@ def forward_step_rows(layer_list: list[Params], final_norm: torch.Tensor,
                 q, k_c, caches["k_s"][l], v_c, caches["v_s"][l], poss, scale, win)
         else:
             attn = _gqa_attention_rows(q, k_c[:, :win], v_c[:, :win], mask, scale)
-        h = h + matmul(attn.reshape(b, -1), layer["o_proj"])
-        h = h + _mlp(layer, rms_norm(h, layer["mlp_norm"], eps))
+        h = h + reduce_from_tp(matmul(attn.reshape(b, -1), layer["o_proj"]), tp_group)
+        h = h + _mlp(layer, rms_norm(h, layer["mlp_norm"], eps), tp_group=tp_group)
     return rms_norm(h, final_norm, eps), caches
 
 
-def lm_logits(params: Params, hidden: torch.Tensor, n_out: int | None = None) -> torch.Tensor:
+def lm_logits(params: Params, hidden: torch.Tensor, n_out: int | None = None,
+              tp_group=None) -> torch.Tensor:
     """hidden [..., D] -> f32 logits [..., V]; `n_out` slices away the
     padded head rows (their logits are exactly 0 and would win an argmax
-    over all-negative rows)."""
-    out = matmul(hidden, params["lm_head"]).float()
+    over all-negative rows). Under `tp_group` the head is this rank's vocab
+    tile and the tiles' logits are gathered along the vocabulary."""
+    out = matmul(copy_to_tp(hidden, tp_group), params["lm_head"]).float()
+    out = gather_from_tp(out, tp_group, -1)
     if n_out is not None and out.shape[-1] != n_out:
         out = out[..., :n_out]
     return out

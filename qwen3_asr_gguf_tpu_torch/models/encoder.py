@@ -8,6 +8,14 @@ backend  : pre-LN transformer (LayerNorm, biased QKV/out, GELU FFN) ->
            ln_post -> proj1 -> GELU -> proj2 -> [T_out, output_dim]
 
 Conv weights are OIHW; matmul weights [out, in] (dense or `Q4Weight`).
+
+`tp_group` (the fine-tuning step under tensor parallelism): the weights are
+one rank's Megatron tiles (`parallel.sharding.ENC_*_SPECS`), attention runs
+on the local heads, conv_out's column tiles are gathered, and the o / fc2 /
+proj2 partial products end in one all-reduce each before their replicated
+bias. `sp_group` (windowed attention only): sequence parallelism, each rank
+runs a contiguous run of the windows through every layer with no collective
+and one all-gather joins them at the end.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.qtensor import matmul
+from ..parallel.collectives import copy_to_tp, gather_from_tp, reduce_from_tp
 from .configs import AudioEncoderConfig
 
 Params = dict[str, Any]
@@ -83,7 +92,8 @@ def _layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 
     return (out * w.float() + b.float()).to(x.dtype)
 
 
-def conv_frontend(params: Params, cfg: AudioEncoderConfig, mel: torch.Tensor) -> torch.Tensor:
+def conv_frontend(params: Params, cfg: AudioEncoderConfig, mel: torch.Tensor,
+                  tp_group=None) -> torch.Tensor:
     """mel [..., n_mels, T] (T % n_window == 0) -> [..., T//n_window * 13,
     d_model]; every 1-second chunk (of every signal of a leading batch axis)
     convolves in one batch and gets positions 0..12."""
@@ -99,35 +109,39 @@ def conv_frontend(params: Params, cfg: AudioEncoderConfig, mel: torch.Tensor) ->
         x = _gelu(x + b[None, :, None, None])
     n, c, f, tw = x.shape  # [N, C, mels/8, win/8]
     x = x.permute(0, 3, 1, 2).reshape(n, tw, c * f)
-    x = matmul(x, params["conv_out"])  # [N, tw, d_model]
+    x = matmul(copy_to_tp(x, tp_group), params["conv_out"])  # [N, tw, d_model]
+    x = gather_from_tp(x, tp_group, -1)
     x = x + params["pos_embed"][None, :tw, :].to(x.dtype)
     return x.reshape(*lead, n_chunks * tw, -1)
 
 
-def _mha(layer: Params, cfg: AudioEncoderConfig, x: torch.Tensor, key_mask=None) -> torch.Tensor:
-    """x [B, T, D] bidirectional attention within each row; `key_mask`
-    [T] or [B, T] bool excludes keys."""
-    b, t, d = x.shape
-    h = cfg.encoder_attention_heads
-    hd = d // h
-    q = (matmul(x, layer["q_w"]) + layer["q_b"]).reshape(b, t, h, hd)
-    k = (matmul(x, layer["k_w"]) + layer["k_b"]).reshape(b, t, h, hd)
-    v = (matmul(x, layer["v_w"]) + layer["v_b"]).reshape(b, t, h, hd)
+def _mha(layer: Params, cfg: AudioEncoderConfig, x: torch.Tensor, key_mask=None,
+         tp_group=None) -> torch.Tensor:
+    """x [B, T, D] bidirectional attention within each row (over the
+    weights' heads: all, or a rank's under `tp_group`); `key_mask` [T] or
+    [B, T] bool excludes keys."""
+    b, t, _ = x.shape
+    hd = cfg.d_model // cfg.encoder_attention_heads
+    x = copy_to_tp(x, tp_group)
+    q = (matmul(x, layer["q_w"]) + layer["q_b"]).reshape(b, t, -1, hd)
+    k = (matmul(x, layer["k_w"]) + layer["k_b"]).reshape(b, t, -1, hd)
+    v = (matmul(x, layer["v_w"]) + layer["v_b"]).reshape(b, t, -1, hd)
     scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * (hd ** -0.5)
     if key_mask is not None:
         km = key_mask[None, None, None, :] if key_mask.ndim == 1 else key_mask[:, None, None, :]
         scores = scores.masked_fill(~km, MASKED)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhts,bshd->bthd", probs.to(v.dtype).float(), v.float()).to(x.dtype)
-    return matmul(out.reshape(b, t, d), layer["o_w"]) + layer["o_b"]
+    return reduce_from_tp(matmul(out.reshape(b, t, -1), layer["o_w"]), tp_group) + layer["o_b"]
 
 
 def backend_transformer(params: Params, cfg: AudioEncoderConfig, hidden: torch.Tensor,
-                        valid_tokens=None) -> torch.Tensor:
+                        valid_tokens=None, *, tp_group=None, sp_group=None) -> torch.Tensor:
     """hidden [..., T, d_model] -> [..., T, output_dim]; a leading batch
     axis holds same-length inputs. `valid_tokens` (an int, or one per input)
     masks later keys in full mode so a bucket-padded call equals the
-    unpadded one on the valid prefix."""
+    unpadded one on the valid prefix. `tp_group` / `sp_group`: see the
+    module docstring (`sp_group` in windowed mode only)."""
     lead = hidden.shape[:-2]
     t, d_model = hidden.shape[-2:]
     hidden = hidden.reshape(-1, t, d_model)
@@ -143,7 +157,11 @@ def backend_transformer(params: Params, cfg: AudioEncoderConfig, hidden: torch.T
         if pad:  # the remainder window must not attend to its zero tail
             key_mask = (torch.arange(t + pad, device=hidden.device) < t).reshape(-1, win)
             key_mask = key_mask.repeat(n_in, 1)
+        if sp_group is not None:
+            x, key_mask, n_win = _sp_windows(x, key_mask, sp_group)
     else:
+        if sp_group is not None:
+            raise ValueError("sequence parallelism splits the windows of windowed attention")
         x = hidden
         if valid_tokens is not None:
             vt = torch.as_tensor(valid_tokens, device=hidden.device).reshape(-1, 1)
@@ -151,17 +169,39 @@ def backend_transformer(params: Params, cfg: AudioEncoderConfig, hidden: torch.T
 
     for layer in params["layers"]:
         # f32 biases promote the residual branch; cast back to the stream dtype
-        attn = _mha(layer, cfg, _layer_norm(x, layer["ln1_w"], layer["ln1_b"]), key_mask)
+        attn = _mha(layer, cfg, _layer_norm(x, layer["ln1_w"], layer["ln1_b"]), key_mask,
+                    tp_group)
         x = x + attn.to(x.dtype)
         y = _layer_norm(x, layer["ln2_w"], layer["ln2_b"])
-        y = _gelu(matmul(y, layer["fc1_w"]) + layer["fc1_b"])
-        y = matmul(y, layer["fc2_w"]) + layer["fc2_b"]
+        y = _gelu(matmul(copy_to_tp(y, tp_group), layer["fc1_w"]) + layer["fc1_b"])
+        y = reduce_from_tp(matmul(y, layer["fc2_w"]), tp_group) + layer["fc2_b"]
         x = x + y.to(x.dtype)
+    if sp_group is not None:
+        x = gather_from_tp(x, sp_group, 0)[:n_win]  # the one collective of the split
     x = x.reshape(n_in, -1, d_model)[:, :t].reshape(*lead, t, d_model)
 
     x = _layer_norm(x, params["ln_post_w"], params["ln_post_b"])
-    x = _gelu(matmul(x, params["proj1_w"]) + params["proj1_b"])
-    return matmul(x, params["proj2_w"]) + params["proj2_b"]
+    x = _gelu(matmul(copy_to_tp(x, tp_group), params["proj1_w"]) + params["proj1_b"])
+    return reduce_from_tp(matmul(x, params["proj2_w"]), tp_group) + params["proj2_b"]
+
+
+def _sp_windows(x: torch.Tensor, key_mask, sp_group):
+    """This rank's contiguous run of the windows x [W, win, D] (the window
+    count padded with whole masked windows to a multiple of the ranks) and
+    their key mask -> (x, key_mask, W)."""
+    import torch.distributed as dist
+
+    n_win, win = x.shape[:2]
+    n = dist.get_world_size(sp_group)
+    per = -(-n_win // n)
+    keys = (torch.ones(n_win, win, dtype=torch.bool, device=x.device)
+            if key_mask is None else key_mask)
+    if per * n != n_win:  # padded windows attend to nothing and are dropped
+        x = F.pad(x, (0, 0, 0, 0, 0, per * n - n_win))
+        keys = F.pad(keys, (0, 0, 0, per * n - n_win))
+    r = dist.get_rank(sp_group)
+    mine = slice(r * per, (r + 1) * per)
+    return x[mine], (None if key_mask is None and per * n == n_win else keys[mine]), n_win
 
 
 def encode(params: Params, cfg: AudioEncoderConfig, mel: torch.Tensor,

@@ -22,8 +22,20 @@ it. The flow is synchronous: a block is fetched before the next is queued
 tokens). A request submitted with `timestamps=True` (on an engine with an
 aligner) is force-aligned after its last chunk on a one-thread align pool,
 chunk by chunk in the engine's windows, while the worker decodes on. Not
-ported (see ROADMAP.md): the tensor-parallel and vmapped bodies, `prewarm`
-and the trace switch.
+ported (see ROADMAP.md): the vmapped body, `prewarm` and the trace switch.
+
+Tensor-parallel serving (an engine built with `mesh_shape`): the rows step
+runs on every rank's local tiles and on row caches split on the kv heads,
+with the two all-reduces per layer of `models.decoder` and the logits
+gathered before the replicated sampling. The ranks run one lockstep loop
+(`_loop_lockstep`): rank 0 takes the HTTP requests and, before each block,
+broadcasts the block's plan (the new requests with their audio and
+temperatures, and which pending requests to admit); every rank then
+encodes, prefills and scatters the same admissions, decodes the same block
+and retires the same rows. Rank 0 runs the loop on the worker thread; the
+other ranks call `follow()`, which returns when rank 0's `close()` ends the
+loop. Admission runs between blocks there (no admission thread), and the
+aligner runs on rank 0 only.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ import torch
 from ..models import decoder as dec
 from ..ops.qtensor import kernel_rows
 from ..ops.sampling import sample_rows
+from ..parallel.collectives import broadcast_object
 from ..schema import TranscribeResult
 from .generate import prompt_bucket, round_up
 
@@ -84,6 +97,13 @@ class _Request:
     mem_feature: Optional[torch.Tensor] = None  # [a, D] on the device
     mem_tokens: List[int] = field(default_factory=list)
     cur_feature: Optional[torch.Tensor] = None  # this chunk's feature (next memory)
+    rid: int = 0  # the request's number under a mesh (the same on every rank)
+
+    def plan_fields(self) -> dict:
+        """What another rank needs to mirror this request (no aligner there)."""
+        return dict(audio=self.audio, context=self.context, language=self.language,
+                    temperature=self.temperature, rollback=self.rollback,
+                    n_chunks=self.n_chunks, rid=self.rid)
 
 
 @dataclass
@@ -110,13 +130,18 @@ class ContinuousBatcher:
     COHORT_MAX = 16  # requests per staged admission
     STAGE_SLOTS = 2  # staged-but-unscattered cohorts in flight
     FILL_GATE_S = 1.0  # cap of the fill gate (see _loop)
+    HEARTBEAT_S = 1.0  # under a mesh: longest wait of the other ranks for a plan
 
     def __init__(self, engine, *, max_batch: int = 8, block: int = 16,
                  max_new_tokens: Optional[int] = None):
         self.engine = engine
-        self.cfg = engine.dec_cfg
         self.device = engine.device
         gen = engine.generator
+        # the local tiles' config (heads over tp under a mesh): the row caches
+        # hold this rank's kv heads
+        self.cfg = gen.step_cfg
+        self.tp_group = gen.tp_group
+        self.lockstep = gen.mesh is not None
         # prefill runs on the prefill-side weights (dense bf16 for int4);
         # decode streams the engine's decode weights through the rows kernels
         self.params = gen.prefill_params
@@ -146,6 +171,8 @@ class ContinuousBatcher:
         self.toks = torch.zeros(self.b, dtype=torch.int64, device=self.device)
         self.dones_dev = torch.ones(self.b, dtype=torch.bool, device=self.device)
         seed = int(np.random.randint(0, 2**31 - 2))
+        if self.lockstep:
+            seed = broadcast_object(seed)  # the ranks sample in lockstep
         self._rng_decode = torch.Generator(device=self.device)
         self._rng_decode.manual_seed(seed)
         self._rng_admit = torch.Generator(device=self.device)  # admission thread's own
@@ -177,6 +204,18 @@ class ContinuousBatcher:
         self._n_blocks = 0
         self._n_cohorts = 0
         self._align_pool: Optional[ThreadPoolExecutor] = None  # at the first timestamped request
+        self.leader = True  # takes requests: rank 0 under a mesh
+        if self.lockstep:
+            import torch.distributed as dist
+
+            self.leader = dist.get_rank() == 0
+            self._inbox: List[_Request] = []  # rank 0: submitted, not yet in a plan
+            self._n_submitted = 0
+            self._admit_thread = None
+            self._thread = threading.Thread(target=self._loop_lockstep, daemon=True)
+            if self.leader:
+                self._thread.start()
+            return
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
         self._admit_thread = threading.Thread(target=self._admit_loop, daemon=True)
@@ -200,9 +239,19 @@ class ContinuousBatcher:
         req = _Request(audio=audio, context=context, language=language,
                        temperature=temperature, n_chunks=n_chunks,
                        timestamps=timestamps and self.supports_timestamps, rollback=rollback)
-        with self._lock:
-            self._pending.append(req)
-        self._admit_work.set()
+        if self.lockstep:
+            if not self.leader:
+                raise RuntimeError("under a mesh only rank 0 takes requests; the other "
+                                   "ranks call follow()")
+            with self._lock:
+                req.rid = self._n_submitted
+                self._n_submitted += 1
+                self._inbox.append(req)
+            self._work.set()
+        else:
+            with self._lock:
+                self._pending.append(req)
+            self._admit_work.set()
         if not req.done_evt.wait(timeout):
             raise TimeoutError("transcription timed out in continuous batch queue")
         if req.error is not None:
@@ -210,13 +259,22 @@ class ContinuousBatcher:
         assert req.result is not None
         return req.result
 
+    def follow(self) -> None:
+        """Under a mesh, on ranks other than 0: run the lockstep loop until
+        rank 0 closes the batcher."""
+        if not self.lockstep or self.leader:
+            raise RuntimeError("follow() is for the ranks other than 0 of a mesh")
+        self._loop_lockstep()
+
     def close(self) -> None:
         self._stop = True
         self._work.set()
         self._admit_work.set()
         self._stage_slots.release()  # unblock an admission thread in acquire
-        self._thread.join(timeout=5.0)
-        self._admit_thread.join(timeout=5.0)
+        if self._thread.is_alive():
+            self._thread.join(timeout=5.0 if not self.lockstep else 600.0)
+        if self._admit_thread is not None:
+            self._admit_thread.join(timeout=5.0)
         if self._align_pool is not None:
             self._align_pool.shutdown(wait=True)
 
@@ -329,8 +387,9 @@ class ContinuousBatcher:
             ids_p, mask_p = gen._padded_prompt(ids, mask, min(prompt_bucket(t), self.n_ctx))
             x = dec.splice_prompt(params, ids_p, mask_p, embd)
             lane_cache = {name: [c[lane] for c in cs] for name, cs in staged.items()}
-            hidden, _ = dec.forward_prefill(params, cfg, x, lane_cache, length=t)
-            last.append(dec.lm_logits(params, hidden[t - 1], cfg.lm_head_dim))
+            hidden, _ = dec.forward_prefill(params, cfg, x, lane_cache, length=t,
+                                            tp_group=self.tp_group)
+            last.append(dec.lm_logits(params, hidden[t - 1], cfg.lm_head_dim, self.tp_group))
         reqs = [k[0] for k in kept]
         p = len(reqs)
         dev = self.device
@@ -444,8 +503,9 @@ class ContinuousBatcher:
         for _ in range(self.block):
             hidden, _ = dec.forward_step_rows(
                 params["layers"], params["final_norm"], cfg, dec.embed_tokens(params, toks),
-                self.caches, torch.clamp(poss_d, max=self.n_ctx - 1), attn_window=win)
-            logits = dec.lm_logits(params, hidden, cfg.lm_head_dim)
+                self.caches, torch.clamp(poss_d, max=self.n_ctx - 1), attn_window=win,
+                tp_group=self.tp_group)
+            logits = dec.lm_logits(params, hidden, cfg.lm_head_dim, self.tp_group)
             toks, dones, em = sample_rows(logits, self._rng_decode, temps_d, greedy_d, dones,
                                           toks, self.eos_dev)
             emitted.append(em)
@@ -595,25 +655,83 @@ class ContinuousBatcher:
                     self._drain_ready()
                     active = [i for i, r in enumerate(self.rows) if r.req is not None]
 
-            # attention window: the deepest active row, in 256-slot buckets
-            win = min(self.s_cache, round_up(int(max(self.poss[i] for i in active)) + self.block,
-                                             256))
-            # idle rows still run (the batch is always self.b wide); they sit
-            # at slot 0, a valid slot that the next admission overwrites
-            poss = np.zeros(self.b, np.int64)
-            poss[active] = self.poss[active]
-            t0 = time.time()
-            try:
-                packed_dev = self._decode_block(poss, self.temps.copy(), self.greedy.copy(),
-                                                self.dones.copy(), win)
-                t1 = time.time()
-                packed = packed_dev.cpu().numpy()  # ONE fetch per block
-            except Exception as e:  # a failed launch: nothing else can run
-                self._fail_active(e)
-                continue
-            self._t_dispatch += t1 - t0
-            self._t_fetch += time.time() - t1
-            self._n_blocks += 1
-            for i in active:
-                self.poss[i] += self.block
-            self._process_block(packed, [(i, int(self.row_gen[i])) for i in active])
+            self._run_block(active)
+
+    def _run_block(self, active: list) -> None:
+        """One decode block over all rows, its one fetch, and its tokens
+        taken into the active rows."""
+        # attention window: the deepest active row, in 256-slot buckets
+        win = min(self.s_cache, round_up(int(max(self.poss[i] for i in active)) + self.block,
+                                         256))
+        # idle rows still run (the batch is always self.b wide); they sit
+        # at slot 0, a valid slot that the next admission overwrites
+        poss = np.zeros(self.b, np.int64)
+        poss[active] = self.poss[active]
+        t0 = time.time()
+        try:
+            packed_dev = self._decode_block(poss, self.temps.copy(), self.greedy.copy(),
+                                            self.dones.copy(), win)
+            t1 = time.time()
+            packed = packed_dev.cpu().numpy()  # ONE fetch per block
+        except Exception as e:  # a failed launch: nothing else can run
+            self._fail_active(e)
+            return
+        self._t_dispatch += t1 - t0
+        self._t_fetch += time.time() - t1
+        self._n_blocks += 1
+        for i in active:
+            self.poss[i] += self.block
+        self._process_block(packed, [(i, int(self.row_gen[i])) for i in active])
+
+    # -- lockstep loop (under a mesh) -----------------------------------------
+
+    def _plan(self):
+        """Rank 0: the next block's plan, (new requests' fields, the ids of
+        the pending requests to admit now), once there is work or after
+        HEARTBEAT_S (an empty plan keeps the other ranks' waits short);
+        None once closed."""
+        t0 = time.time()
+        while True:
+            with self._lock:
+                if self._stop:
+                    return None
+                new, self._inbox = self._inbox, []
+                self._pending.extend(new)
+                free = sum(r.req is None for r in self.rows)
+                admit = [r.rid for r in self._pending[:min(free, self.cohort_max)]]
+            busy = any(r.req is not None for r in self.rows)
+            if new or admit or busy or time.time() - t0 > self.HEARTBEAT_S:
+                return [r.plan_fields() for r in new], admit
+            self._work.wait(timeout=0.05)
+            self._work.clear()
+
+    def _loop_lockstep(self) -> None:
+        """Every rank: take rank 0's plan, admit what it names (encode,
+        prefill and scatter; the same on every rank), decode one block over
+        the active rows and retire finished rows."""
+        while True:
+            plan = broadcast_object(self._plan() if self.leader else None)
+            if plan is None:
+                return
+            new, admit = plan
+            if not self.leader:
+                self._pending.extend(_Request(**fields) for fields in new)
+            if admit:
+                ids = set(admit)
+                with self._lock:
+                    by_id = {r.rid: r for r in self._pending}
+                    self._pending = [r for r in self._pending if r.rid not in ids]
+                reqs = [by_id[i] for i in admit]
+                try:
+                    cohort = self._stage_cohort(reqs)
+                except Exception as e:
+                    cohort = None
+                    for req in reqs:
+                        req.error = e
+                        req.done_evt.set()
+                if cohort is not None:
+                    self._ready.append(cohort)
+                    self._drain_ready()
+            active = [i for i, r in enumerate(self.rows) if r.req is not None]
+            if active:
+                self._run_block(active)

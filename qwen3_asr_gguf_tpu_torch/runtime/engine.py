@@ -25,9 +25,16 @@ caches bf16, f32 or int8 (`kv_cache_dtype`; an f32 engine keeps f32 KV, as in
 the JAX package). With `enable_aligner`, chunk i is force-aligned as soon as its
 text is final, in the same windows and with the same offsets as the JAX
 engine's align worker (which aligns chunk i-1 while chunk i decodes; here the
-steps run one after the other and give the same items). Not ported yet (see
-ROADMAP.md): the mesh. `pipelined_dispatch` runs this synchronous path, which
-gives the same tokens.
+steps run one after the other and give the same items). `pipelined_dispatch`
+runs this synchronous path, which gives the same tokens.
+
+`mesh_shape` (e.g. {"model": 2}) runs the decoder tensor-parallel over the
+initialised `torch.distributed` world (one process per rank, launched under
+`torchrun`; `parallel.sharding.make_mesh`): the decoder's unfused weights
+are cut into Megatron tiles, "int4" stays packed int4 where
+`int4_tp_supported` holds and is served at "int8" otherwise, as in the JAX
+package; the encoder and the aligner are replicated on every rank. Every
+rank runs the same calls and gets the same text.
 """
 
 from __future__ import annotations
@@ -87,9 +94,6 @@ class QwenASREngine:
                  fused_mlp: bool | None = None):
         """`fused_mlp` goes to the Generator: None turns the fused int8 MLP
         kernel on for an "int8" engine on the card and off on the CPU."""
-        if config.mesh_shape:
-            raise NotImplementedError("mesh inference is not ported yet "
-                                      "(ROADMAP.md Queue 1, item 7)")
         if config.precision not in ("int4", "int8", "q4_k", "bf16", "f16", "f32"):
             raise ValueError(f"unknown precision {config.precision!r}")
         kv_name = "f32" if config.precision == "f32" else config.kv_cache_dtype
@@ -99,6 +103,10 @@ class QwenASREngine:
         self.config = config
         self.verbose = config.verbose
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the card by number: a worker thread's current card is card 0,
+            # whatever this rank's card is
+            self.device = torch.device("cuda", torch.cuda.current_device())
         model_dir = config.model_dir
         thinker = P.load_thinker_config(model_dir)
         self.thinker = thinker
@@ -119,22 +127,37 @@ class QwenASREngine:
             device=self.device,
         )
 
+        self.mesh = None
+        dec_precision = {"f16": "bf16"}.get(config.precision, config.precision)
+        if config.mesh_shape:
+            from ..parallel import sharding as S
+
+            self.mesh = S.make_mesh(dict(config.mesh_shape))
+            _, tp = S.mesh_dim(self.mesh, "model")
+            if dec_precision == "int4" and not S.int4_tp_supported(thinker.text, tp):
+                logger.info("mesh inference: decoder precision int4 -> int8 "
+                            "(geometry not TP-divisible)")
+                dec_precision = "int8"
         dec_cfg, dec_params, tokenizer = P.load_decoder_gguf(
-            os.path.join(model_dir, config.llm_fn),
-            precision={"f16": "bf16"}.get(config.precision, config.precision), device=self.device)
+            os.path.join(model_dir, config.llm_fn), precision=dec_precision, device=self.device)
         self.dec_cfg = dec_cfg
         self.model = tokenizer  # the reference LlamaModel text API
+        if self.mesh is None:
+            # one qkv / gateup stream per layer; a row split of the fused
+            # weights would cross the q / k / v sections under a mesh
+            dec_params = P.fuse_layer_weights(dec_params)
         self.generator = Generator(
-            P.fuse_layer_weights(dec_params), dec_cfg,
+            dec_params, dec_cfg,
             n_ctx=config.n_ctx,
             eos_ids=thinker.eos_token_ids,
             block=config.decode_block,
             cache_dtype=_KV_DTYPES[kv_name],
             # only int4 prefills on a dense copy made once; the other
             # precisions go through `matmul` per call, as in the JAX package
-            dequant_prefill=config.precision == "int4",
+            dequant_prefill=dec_precision == "int4",
             fused_mlp=fused_mlp,
             device=self.device,
+            mesh=self.mesh,
         )
         self.ID_IM_START = thinker.im_start_token_id
         self.ID_IM_END = thinker.im_end_token_id

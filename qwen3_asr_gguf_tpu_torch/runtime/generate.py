@@ -12,6 +12,14 @@
 Prompts are padded to `prompt_bucket` lengths (padding keys are masked) and
 decode attends to a window of the cache rounded up to 256 slots, as in the
 JAX package. The KV cache is updated in place.
+
+With a `mesh` (`parallel.sharding.make_mesh`, one process per rank) the
+Generator runs tensor-parallel: every rank holds its Megatron tiles of the
+unfused weights and a KV cache of kv_heads/tp heads, each layer ends in the
+two all-reduces of `models.decoder`, and the vocab-split logits are gathered
+before sampling. Sampling stays replicated: every rank samples the same
+gathered logits with a generator seeded the same way, so the ranks emit the
+same tokens without a broadcast.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 from ..models import decoder as dec
 from ..models.configs import TextDecoderConfig
 from ..ops.sampling import sample
+from ..parallel.collectives import broadcast_object
 
 
 @dataclasses.dataclass
@@ -61,24 +70,55 @@ class Generator:
         dequant_prefill: bool = False,  # prefill on a dense bf16 copy of int4 weights
         fused_mlp: bool | None = None,
         device="cuda",
+        mesh=None,
     ):
         """`fused_mlp`: the decode step's MLP through the fused int8 kernel
         (`ops.mlp.fused_mlp_matvec`) where the weights allow it
         (`_mlp_fusable`). None turns it on when the weights are on the card
-        and off on the CPU, whose unfused side the goldens come from."""
-        self.params = params
+        and off on the CPU, whose unfused side the goldens come from.
+
+        `mesh`: a `DeviceMesh` ("data", "model") of the initialised world;
+        `params` are the whole unfused weights (every rank passes the same),
+        cut here into this rank's tiles. On the card every local tile must
+        have its kernel (`parallel.sharding.check_local_tiles` raises
+        otherwise). Prefill runs on the local tiles too: no dense prefill
+        copy is made under a mesh."""
         self.cfg = cfg
+        self.device = torch.device(device)
+        self.mesh = mesh
+        self.tp_group = None
+        self.step_cfg = cfg  # the config of the local tiles the forward runs on
+        self._seeds = None
+        if mesh is not None:
+            params = self._shard(params, mesh)
+            dequant_prefill = False
+            # one seed stream on every rank: the ranks sample in lockstep
+            self._seeds = np.random.default_rng(
+                broadcast_object(int(np.random.randint(0, 2**31 - 1))))
+        self.params = params
         self.n_ctx = n_ctx
         self.eos_ids = frozenset(int(e) for e in eos_ids)
         self.cache_dtype = cache_dtype
         self.block = block
-        self.device = torch.device(device)
         self._dequant_prefill = dequant_prefill
         self._prefill_params = None
         if fused_mlp is None:
             fused_mlp = self.device.type == "cuda"
         self.fused_mlp = bool(fused_mlp) and self._mlp_fusable()
         self._layers_list = None
+
+    def _shard(self, params: dict, mesh) -> dict:
+        from ..parallel import sharding as S
+
+        if any("qkv_proj" in layer or "gateup_proj" in layer for layer in params["layers"]):
+            raise ValueError("sharded inference requires unfused layer weights")
+        _, tp = S.mesh_dim(mesh, "model")
+        self.tp_group = S.tp_group(mesh)
+        self.step_cfg = S.local_config(self.cfg, tp)
+        params = dict(params, lm_head=S.pad_head(params["lm_head"], tp))
+        params = S.shard_params(mesh, params, S.decoder_param_specs(self.cfg, params))
+        S.check_local_tiles(params["layers"], params["lm_head"], self.device.type)
+        return params
 
     @property
     def prefill_params(self) -> dict:
@@ -115,12 +155,13 @@ class Generator:
         # whole 256-slot tiles at any n_ctx: the decode window (a 256-slot
         # bucket) is then always one the attention kernel takes; positions
         # stay below n_ctx, so the extra slots are never attended to
-        return dec.init_cache(self.cfg, round_up(self.n_ctx, 256), self.cache_dtype,
+        return dec.init_cache(self.step_cfg, round_up(self.n_ctx, 256), self.cache_dtype,
                               device=self.device)
 
     def _rng(self, seed: int | None) -> torch.Generator:
         if seed is None:
-            seed = int(np.random.randint(0, 2**31 - 1))
+            seed = int(np.random.randint(0, 2**31 - 1) if self._seeds is None
+                       else self._seeds.integers(0, 2**31 - 1))
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         return gen
@@ -134,7 +175,7 @@ class Generator:
                 torch.from_numpy(mask_p).to(self.device))
 
     def _first_token(self, params, hidden, t, temperature, gen) -> int:
-        logits = dec.lm_logits(params, hidden[t - 1], self.cfg.lm_head_dim)
+        logits = dec.lm_logits(params, hidden[t - 1], self.cfg.lm_head_dim, self.tp_group)
         return int(sample(logits, gen, temperature))
 
     def start_spliced(
@@ -157,7 +198,8 @@ class Generator:
         cache = cache if cache is not None else self.new_cache()
         params = self.prefill_params
         embd = dec.splice_prompt(params, ids_p, mask_p, audio_embd)
-        hidden, cache = dec.forward_prefill(params, self.cfg, embd, cache, length=t)
+        hidden, cache = dec.forward_prefill(params, self.step_cfg, embd, cache, length=t,
+                                            tp_group=self.tp_group)
         tok = self._first_token(params, hidden, t, temperature, gen)
         return GenState(cache=cache, pos=t, last_token=tok, generator=gen,
                         done=tok in self.eos_ids)
@@ -185,7 +227,8 @@ class Generator:
         params = self.prefill_params
         embd = dec.splice_prompt(params, ids_p, mask_p, audio_embd)
         hidden, cache = dec.forward_prefill_at(
-            params, self.cfg, embd, cache, start, prefix_window=prefix_window, length=t)
+            params, self.step_cfg, embd, cache, start, prefix_window=prefix_window, length=t,
+            tp_group=self.tp_group)
         tok = self._first_token(params, hidden, t, temperature, gen)
         return GenState(cache=cache, pos=start + t, last_token=tok, generator=gen,
                         done=tok in self.eos_ids)
@@ -213,10 +256,10 @@ class Generator:
         tok, pos, done, aborted = state.last_token, state.pos, state.done, False
         while len(emitted) < self.block and not done:
             hidden, _ = dec.forward_step_layers(
-                layers, final_norm, self.cfg, self.params["embed"][tok], state.cache, pos,
-                attn_window=win, fused_mlp=self.fused_mlp,
+                layers, final_norm, self.step_cfg, self.params["embed"][tok], state.cache, pos,
+                attn_window=win, fused_mlp=self.fused_mlp, tp_group=self.tp_group,
             )
-            logits = dec.lm_logits(self.params, hidden, self.cfg.lm_head_dim)
+            logits = dec.lm_logits(self.params, hidden, self.cfg.lm_head_dim, self.tp_group)
             nxt = int(sample(logits, state.generator, temperature))
             emitted.append(tok)
             # repetition latch (<= 3 distinct in the last 15 fed tokens); the

@@ -151,8 +151,8 @@ def test_windows_are_whole_tiles_at_any_n_ctx(tiny, monkeypatch):
     wins = []
     real = dec.forward_step_rows
     monkeypatch.setattr(dec, "forward_step_rows",
-                        lambda *a, attn_window: wins.append(attn_window)
-                        or real(*a, attn_window=attn_window))
+                        lambda *a, attn_window, **kw: wins.append(attn_window)
+                        or real(*a, attn_window=attn_window, **kw))
     monkeypatch.setattr(port.config, "n_ctx", 300)
     cb = ContinuousBatcher(port, max_batch=2, block=4)
     try:

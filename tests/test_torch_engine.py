@@ -174,7 +174,8 @@ def test_reproduces_golden_engine_transcribe(golden_engine):
 
 
 def test_not_ported_options_raise(kernel_dir):
-    with pytest.raises(NotImplementedError):
+    """A mesh needs an initialised torch.distributed world (torchrun)."""
+    with pytest.raises(RuntimeError, match="torchrun"):
         QwenASREngine(_config(kernel_dir, "qwen3_asr_llm.q4_k.gguf", "int4",
                               mesh_shape={"model": 2}), device="cpu")
 

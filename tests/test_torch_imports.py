@@ -96,7 +96,8 @@ print("imported", len({modules!r}))
                 "runtime.batched", "runtime.microbatch", "cli.transcribe", "export.convert",
                 "export.__main__", "formats.__main__", "cli.perplexity", "cli.quant_accuracy",
                 "cli.diagnostics", "cli.demo_streaming", "cli.verify_weights", "cli.release",
-                "examples.run_asr", "examples.run_aligner"):
+                "examples.run_asr", "examples.run_aligner", "parallel.sharding",
+                "parallel.train", "parallel.launch", "parallel.collectives", "parallel.dryrun"):
         assert f"qwen3_asr_gguf_tpu_torch.{new}" in modules
 
 
@@ -228,8 +229,25 @@ def _case_presets():
         assert ja.text.lm_head_dim == ta.text.lm_head_dim
 
 
+def _case_int4_tp_supported():
+    """The port's `parallel.sharding.int4_tp_supported` is the JAX package's
+    function line for line (a copied function in a module that is not a
+    copy), and gives its answers on the presets' decoders at 1 to 8 ways."""
+    import inspect
+
+    from qwen3_asr_gguf_tpu.parallel import sharding as jsh
+    from qwen3_asr_gguf_tpu_torch.parallel import sharding as tsh
+
+    assert inspect.getsource(tsh.int4_tp_supported) == inspect.getsource(jsh.int4_tp_supported)
+    for name in ("qwen3-asr-0.6b", "qwen3-asr-1.7b", "qwen3-forced-aligner-0.6b", "tiny"):
+        for tp in range(1, 9):
+            assert (tsh.int4_tp_supported(tpkg.preset(name).text, tp)
+                    == jsh.int4_tp_supported(jconfigs.preset(name).text, tp)), (name, tp)
+
+
 CASES = {"quants": _case_quants, "gguf": _case_gguf, "tokenizer": _case_tokenizer,
-         "align_text": _case_align_text, "parsing": _case_parsing, "presets": _case_presets}
+         "align_text": _case_align_text, "parsing": _case_parsing, "presets": _case_presets,
+         "int4_tp_supported": _case_int4_tp_supported}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -26,6 +26,7 @@ from qwen3_asr_gguf_tpu_torch.cli.http import make_handler
 from qwen3_asr_gguf_tpu_torch.export.synthetic import make_synthetic_checkpoint
 
 from test_torch_engine import _audio
+from test_torch_parallel import world_of_one  # noqa: F401  (a fixture)
 
 
 @pytest.fixture(scope="module")
@@ -122,8 +123,28 @@ def test_build_is_the_cli_path_and_loads_no_jax(model_dir):
 
 @pytest.mark.parametrize("extra", [("--mesh", "model=2")])
 def test_not_ported_flags_raise(model_dir, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """`--mesh` without a torchrun world raises and says how to launch."""
+    with pytest.raises(RuntimeError, match="torchrun"):
         serve.build(_argv(model_dir, *extra))
+
+
+def test_mesh_model_1_serves_in_a_gloo_world_of_one(model_dir, world_of_one):
+    """`--mesh model=1` in a gloo world of one rank: the lockstep batcher
+    (rank 0 plans, nothing to follow) gives the plain batcher's greedy text;
+    a mesh refuses the other batch modes."""
+    audio = _audio(1.5, 440.0)
+    texts = []
+    for extra in ((), ("--mesh", "model=1")):
+        _, engine, batcher = serve.build(_argv(model_dir, *extra), max_new_tokens=12,
+                                         decode_block=8)
+        try:
+            assert batcher.lockstep == bool(extra) and batcher.leader
+            texts.append(batcher.submit(audio, language="English", temperature=0.0).text)
+        finally:
+            batcher.close()
+    assert texts[0] == texts[1] and texts[0]
+    with pytest.raises(ValueError, match="continuous"):
+        serve.build(_argv(model_dir, "--mesh", "model=1", "--batch-mode", "micro"))
 
 
 def test_micro_mode_serves_concurrent_posts_as_one_batch(model_dir):

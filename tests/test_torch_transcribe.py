@@ -23,6 +23,7 @@ from qwen3_asr_gguf_tpu_torch.export.synthetic import make_synthetic_checkpoint
 
 from test_torch_engine import one_torch_thread  # noqa: F401  (a fixture)
 from test_torch_engine import _audio
+from test_torch_parallel import world_of_one  # noqa: F401  (a fixture)
 from test_torch_serve import _wav
 
 
@@ -95,14 +96,30 @@ def test_cli_reports_a_missing_checkpoint(tmp_path, capsys):
     assert "qwen3_asr_gguf_tpu_torch/export/synthetic.py" in err
 
 
-def test_cli_mesh_and_missing_card_raise(model_dir, tmp_path, monkeypatch):
+def test_cli_mesh_and_missing_card_raise(model_dir, tmp_path, monkeypatch, capsys):
     import torch
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cli.main(["a.wav", "--model-dir", model_dir, "--mesh", "model=2"])
+    # no torch.distributed world: the engine refuses and the CLI says how to launch
+    rc = port_cli.main(["a.wav", "--model-dir", model_dir, "--mesh", "model=2", "--device", "cpu"])
+    assert rc == 1 and "torchrun --nproc-per-node" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_cli.main(["a.wav", "--model-dir", model_dir])  # the default device, cuda
+
+
+def test_cli_mesh_model_1_runs_in_a_gloo_world_of_one(model_dir, tmp_path, monkeypatch,
+                                                      world_of_one):
+    """`--mesh model=1` on the CPU inside an initialised gloo world of one
+    rank writes the text the CLI writes without a mesh."""
+    wav = tmp_path / "a.wav"
+    wav.write_bytes(_wav(_audio(2.0, 440.0)))
+    _short_budget(monkeypatch, port_schema)
+    texts = []
+    for name, extra in (("plain", ()), ("mesh", ("--mesh", "model=1"))):
+        out = tmp_path / name
+        assert port_cli.main(_args(model_dir, wav, out, "--device", "cpu", *extra)) == 0
+        texts.append((out / "a.txt").read_text(encoding="utf-8"))
+    assert texts[0] == texts[1] and texts[0].strip()
 
 
 def test_cli_runs_without_jax(model_dir, tmp_path):
