@@ -27,9 +27,17 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    decode_block = max_new_tokens = 96, KV prefix reuse, the 0.6B forced
    aligner at int8) on a 50.2 s synthetic clip: one warm-up pass, then
    temperature 0.4 and 0, each with the kernels' launch counts of that run
-   and the checks on the returned alignment; then, for comparison inside
-   this run only, the same call with the aligner off and with the plain
-   decode attention;
+   and the checks on the returned alignment (one block per chunk: the
+   pipelined chunk dispatch with the align worker); then, for comparison
+   inside this run only, the same call with the aligner off, with the plain
+   decode attention and with `pipelined_dispatch` off (the synchronous
+   flow); the pipelined flow against the synchronous one at 15 greedy
+   tokens per chunk (phase asr_pipeline: text, per-chunk tokens and aligned
+   items equal, or parted at a near-tie within 2 bf16 ulp; the alignments
+   taken speculatively; each flow timed twice); and the chunk dispatch and
+   a decode block queued behind it under
+   torch.cuda.set_sync_debug_mode("error") (phase block_sync_free: nothing
+   in them waits for the card);
 6. one full-width decode step through the kernels against the same step on
    dense dequantized weights with the plain attention (cosine bound), finite
    encoder output, and the aligner's sparse logits on the card against an
@@ -111,8 +119,11 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
 25. the kernels that one q4k_matvec call puts on the device (torch.profiler:
    one) and one q4k_matvec_normed call (one: the rms_norm is in its
    prologue), at each decode shape, and one fused_mlp_matvec call (one
-   cooperative launch) at both MLP shapes: last, so that no profiler session
-   precedes a timed phase.
+   cooperative launch) at both MLP shapes; then one 96-step decode block of
+   the headline engine (timed before these sessions) in one profiler window
+   (phase block_profile: ms per step, device kernels per step, busy time,
+   the card's idle share): last, so that no profiler session precedes a
+   timed phase, and none follows the block's large window.
 
 Every kernel's launches are counted in the run of its path (counts set to 0
 just before it). The last lines are the kernels summary, the nvidia-smi
@@ -184,8 +195,14 @@ def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
 
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line on stdout, whole even when phases run on two threads."""
+    with _EMIT_LOCK:
+        sys.stdout.write(json.dumps(obj) + "\n")
+        sys.stdout.flush()
 
 
 def log(msg: str) -> None:
@@ -473,28 +490,9 @@ PROFILE_TRIES = 5  # profiler sessions per call before a blind instrument fails 
 
 def device_launches(torch, call) -> tuple[list[str], int]:
     """(names of the kernels one call of `call` puts on the device, profiler
-    sessions it took). torch.profiler (CUDA events only) may record nothing at
-    all in a session, most often in the first ones of a process while CUPTI
-    comes up: so a marker kernel (torch.cuda._sleep, `spin_kernel`) runs just
-    before and just after the call, and a session that does not show both
-    markers saw nothing and is repeated, at most PROFILE_TRIES times. The
-    count is every other device event of the first session that shows both."""
-    from torch.profiler import ProfilerActivity, profile
-
-    seen = []
-    for tries in range(1, PROFILE_TRIES + 1):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            if call is not None:
-                call()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        markers = [n for n in names if "spin_kernel" in n]
-        if len(markers) == 2:
-            return [n for n in names if "spin_kernel" not in n], tries
-        seen.append(names)
-    raise RuntimeError(f"no profiler session of {PROFILE_TRIES} saw both markers: {seen}")
+    sessions it took): see `device_window`."""
+    kernels, tries = device_window(torch, call)
+    return [name for name, _, _ in kernels], tries
 
 
 def device_kernels_phase(torch, dev, cfg) -> dict:
@@ -1428,28 +1426,17 @@ def bf16_ulp(x: float) -> float:
 
 
 def greedy_engine_tokens(torch, engine, audio):
-    """(result, tokens, [top1, top2, argmax] per LM-head product) of the
+    """(result, tokens, [top1, top2, argmax] per fed LM-head product) of the
     engine's greedy call on one chunk of at most 40 s, aligner off, with
     BATCH_NEW_TOKENS new tokens in one decode block (below the breaker's
     16-token window, so no random retry)."""
-    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
-
     gen = engine.generator
     saved = engine.aligner, engine.config.max_new_tokens, gen.block
     engine.aligner, engine.config.max_new_tokens, gen.block = None, BATCH_NEW_TOKENS, BATCH_NEW_TOKENS
-    logits, inner = [], dec.lm_logits
-
-    def recording(*args, **kw):
-        out = inner(*args, **kw)
-        logits.append(torch.topk(out.float(), 2).values.tolist() + [int(out.argmax())])
-        return out
-
-    dec.lm_logits = recording
     try:
-        res = engine.asr(audio, context="", language="Chinese", temperature=0.0,
-                         chunk_size_sec=40.0)
+        res, logits = recorded_greedy(torch, lambda: engine.asr(
+            audio, context="", language="Chinese", temperature=0.0, chunk_size_sec=40.0))
     finally:
-        dec.lm_logits = inner
         engine.aligner, engine.config.max_new_tokens, gen.block = saved
     return res, [row[2] for row in logits], logits
 
@@ -1530,6 +1517,247 @@ def batcher_vs_engine_phase(torch, engine, audio) -> dict:
     require(rows == 8 and steps > 0 and launches == per_step * steps,
             f"max_batch 4: {rows} rows, {launches} q4k_matmul_rows launches for {steps} steps")
     return row
+
+def chunk_prompt(torch, engine, audio):
+    """(ids, mask, embeddings) of the headline call's first chunk prompt: the
+    clip's first 40 s, "Chinese", no carried text."""
+    n_audio = engine.encoder.valid_tokens(40 * 16_000)
+    feat = engine.encoder.encode(torch.from_numpy(audio[: 40 * 16_000]).to(engine.device))
+    ids, mask = engine._build_prompt_ids(n_audio, "", "", "Chinese")
+    return ids, mask, feat[:n_audio]
+
+
+def asr_pipeline_phase(torch, engine, audio) -> dict:
+    """The engine's pipelined chunk dispatch (one block per chunk: chunk i+1
+    queued from chunk i's emitted buffer; the align worker with chunk 0's and
+    the last chunk's speculative aligns) against its synchronous flow
+    (`pipelined_dispatch=False`) on the clip, greedy, aligner on, at
+    BATCH_NEW_TOKENS new tokens per chunk in one block: below the breaker's
+    window, since a retry samples with other seeds in the two flows. Text,
+    per-chunk tokens and items equal; where the tokens part (the speculative
+    prefill may pad to another bucket, so cuBLAS may sum in another order),
+    the synchronous flow's top-2 margin at the first differing step must be
+    within 2 bf16 ulp. Then each flow timed twice, P S S P (host clock)."""
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+
+    gen, aligner = engine.generator, engine.aligner
+    saved = engine.config.max_new_tokens, gen.block, engine.config.pipelined_dispatch
+    engine.config.max_new_tokens = gen.block = BATCH_NEW_TOKENS
+    runs = {}
+
+    def one(pipelined: bool, record: bool):
+        engine.config.pipelined_dispatch = pipelined
+        chunks, taken, pads = [], [], []
+        inner_c, inner_s = engine._collect_chunk, engine._safe_decode
+        inner_a = aligner.spec_align_collect
+        inner_p, inner_pa = dec.forward_prefill, dec.forward_prefill_at
+
+        def collect(*a, **k):
+            res = inner_c(*a, **k)
+            chunks.append((list(res.stable_tokens), res.is_aborted))
+            return res
+
+        def safe(*a, **k):
+            res, cache = inner_s(*a, **k)
+            chunks.append((list(res.stable_tokens), res.is_aborted))
+            return res, cache
+
+        def spec(*a, **k):
+            out = inner_a(*a, **k)
+            taken.append(out is not None)
+            return out
+
+        def padded(inner):
+            def call(params, cfg, embd, *a, **k):
+                if params is not aligner.runner.params:
+                    pads.append(int(embd.shape[0]))
+                return inner(params, cfg, embd, *a, **k)
+            return call
+
+        engine._collect_chunk, engine._safe_decode, aligner.spec_align_collect = collect, safe, spec
+        dec.forward_prefill, dec.forward_prefill_at = padded(inner_p), padded(inner_pa)
+
+        def call():
+            return engine.asr(audio, context="", language="Chinese", temperature=0.0)
+
+        try:
+            t0 = time.time()
+            if record:
+                res, logits = recorded_greedy(torch, call,
+                                              keep=lambda p: p is not aligner.runner.params)
+            else:
+                res, logits = call(), None
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            del engine._collect_chunk, engine._safe_decode, aligner.spec_align_collect
+            dec.forward_prefill, dec.forward_prefill_at = inner_p, inner_pa
+        return {"res": res, "logits": logits, "wall_s": wall, "pads": pads,
+                "chunks": [t for t, aborted in chunks if not aborted],
+                "aborted": sum(a for _, a in chunks), "spec_aligns_taken": sum(taken),
+                "spec_aligns_tried": len(taken)}
+
+    try:
+        for pipelined in (True, False):
+            runs[pipelined] = one(pipelined, record=True)
+        walls = {True: [], False: []}
+        for pipelined in (True, False, False, True):
+            walls[pipelined].append(one(pipelined, record=False)["wall_s"])
+    finally:
+        engine.config.max_new_tokens, gen.block, engine.config.pipelined_dispatch = saved
+    p, q = runs[True], runs[False]
+    items = {k: [(i.text, i.start_time, i.end_time) for i in (r["res"].alignment.items
+                                                              if r["res"].alignment else [])]
+             for k, r in runs.items()}
+    row = {"phase": "asr_pipeline", "audio_s": len(audio) / 16_000,
+           "new_tokens_per_chunk": BATCH_NEW_TOKENS, "texts_equal": p["res"].text == q["res"].text,
+           "chunks": len(p["chunks"]), "chunk_tokens_equal": p["chunks"] == q["chunks"],
+           "items": len(items[True]), "items_equal": items[True] == items[False],
+           "prefill_pads": {"pipelined": p["pads"], "synchronous": q["pads"]},
+           "aborted_chunks": {"pipelined": p["aborted"], "synchronous": q["aborted"]},
+           "spec_aligns_taken": p["spec_aligns_taken"], "spec_aligns_tried": p["spec_aligns_tried"],
+           "wall_s": {"pipelined": walls[True], "synchronous": walls[False]},
+           **near_tie_verdict("asr_pipeline", q["res"].text, [r[2] for r in q["logits"]],
+                              q["logits"], p["res"].text, [r[2] for r in p["logits"]],
+                              limit=len(q["logits"]))}
+    emit(row)
+    require(p["aborted"] == q["aborted"] == 0, "asr_pipeline: a chunk aborted below the window")
+    require(len(p["chunks"]) == len(q["chunks"]) == math.ceil(len(audio) / (40 * 16_000)),
+            f"asr_pipeline: {len(p['chunks'])} / {len(q['chunks'])} chunks read")
+    if row["first_differing_step"] is None:
+        require(row["chunk_tokens_equal"], "asr_pipeline: equal streams, other chunk tokens")
+        require(row["items_equal"] or p["pads"] != q["pads"],
+                "asr_pipeline: equal prompts and tokens, other aligned items")
+        require(items[True], "asr_pipeline: no aligned items")
+    return row
+
+
+def block_sync_free_phase(torch, engine, audio) -> dict:
+    """The tests' check of a dispatched chunk at full width: the headline
+    engine's `_dispatch_chunk` (the chunk-0 prefill and one 96-step block)
+    and one block queued behind it raise nothing under
+    torch.cuda.set_sync_debug_mode("error"), greedy and at 0.4; the host's
+    queueing time per step (ms) and the wait in `collect_block`."""
+    gen = engine.generator
+    ids, mask, feat = chunk_prompt(torch, engine, audio)
+    warm = engine._dispatch_chunk(ids, mask, feat, 0.4)
+    gen.collect_block(warm["packed"])
+    torch.cuda.synchronize()
+    row = {"phase": "block_sync_free", "block": gen.block, "runs": {}}
+    for temperature in (0.0, 0.4):
+        t0 = time.time()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pend = engine._dispatch_chunk(ids, mask, feat, temperature)
+            t1 = time.time()
+            _, packed = gen.decode_block_dispatch(pend["state"], temperature)
+            t2 = time.time()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        toks, finished, _ = gen.collect_block(pend["packed"])
+        more, _, _ = gen.collect_block(packed)
+        t3 = time.time()
+        row["runs"][str(temperature)] = {
+            "tokens": len(toks), "more_tokens": len(more), "finished": finished,
+            "chunk_dispatch_s": t1 - t0, "block_dispatch_s": t2 - t1, "collect_wait_s": t3 - t2,
+            "ms_per_queued_step": (t2 - t1) * 1e3 / max(len(more), 1)}
+        require(len(toks) == gen.block or finished, f"block_sync_free: {len(toks)} tokens")
+    emit(row)
+    return row
+
+
+def device_window(torch, call) -> tuple[list, int]:
+    """([(name, start_us, end_us)] of the device kernels that one call of
+    `call` puts on the card, profiler sessions it took). torch.profiler (CUDA
+    events only) may record nothing at all in a session, most often in the
+    first ones of a process while CUPTI comes up: so a marker kernel
+    (torch.cuda._sleep, `spin_kernel`) runs just before and just after the
+    call, and a session that does not show both markers saw nothing and is
+    repeated, at most PROFILE_TRIES times. The result is every other device
+    event of the first session that shows both."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            if call is not None:
+                call()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        ev = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum("spin_kernel" in n for n, _, _ in ev) == 2:
+            return [e for e in ev if "spin_kernel" not in e[0]], tries
+        seen.append([n for n, _, _ in ev])
+    raise RuntimeError(f"no profiler session of {PROFILE_TRIES} saw both markers: {seen}")
+
+
+def fresh_block(gen, state, seed: int):
+    """One decode block at 0.4 from `state` with its own seed and latch watch."""
+    import dataclasses
+
+    from qwen3_asr_gguf_tpu_torch.runtime.generate import DoneWatch
+
+    fresh = dataclasses.replace(state, watch=DoneWatch(), generator=gen._rng(seed))
+    return gen.decode_block(fresh, 0.4)
+
+
+def time_blocks(torch, gen, state, runs: int = 3) -> list[tuple[float, int]]:
+    """[(wall seconds, steps)] of `runs` 96-step decode blocks of the headline
+    engine from chunk 0's prefill at temperature 0.4 (greedy would end a
+    block at the repetition latch after 16 steps), on the host clock."""
+    out = []
+    for seed in range(runs):
+        torch.cuda.synchronize()
+        with StepCounter() as sc:
+            t0 = time.time()
+            fresh_block(gen, state, seed)
+            out.append((time.time() - t0, sc.steps))
+    return out
+
+
+def block_profile_phase(torch, gen, state, walls: list) -> dict:
+    """ms per step of the `time_blocks` runs, then one torch.profiler window
+    of the same block: device kernels per step, their busy time (the union
+    of their intervals) and the card's idle share over the block (from the
+    first kernel's start to the last one's end, and over the unprofiled
+    wall). Last of all: a profiler session after this window's ~126,000
+    events records too few to trust."""
+    layers = gen.cfg.num_layers
+    for tries in range(1, PROFILE_TRIES + 1):
+        with StepCounter() as sc:
+            kernels, sessions = device_window(torch, lambda: fresh_block(gen, state, 0))
+        # a session that lost events shows fewer than the step's 4 x layers + 1
+        # q4_k matvecs; it is repeated
+        if sum("q4k_matvec" in n for n, _, _ in kernels) == (4 * layers + 1) * sc.steps:
+            break
+    else:
+        raise RuntimeError(f"block_profile: no session of {PROFILE_TRIES} saw every matvec")
+    spans = sorted((a, b) for _, a, b in kernels)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    window = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    names: dict = {}
+    for n, _, _ in kernels:
+        names[n[:80]] = names.get(n[:80], 0) + 1
+    ms_step = min(w / max(n, 1) for w, n in walls) * 1e3
+    busy_ms_step = busy / 1e3 / max(sc.steps, 1)
+    row = {"phase": "block_profile", "temperature": 0.4, "steps": [n for _, n in walls],
+           "wall_s": [w for w, _ in walls],
+           "ms_per_step": ms_step, "profiled_steps": sc.steps, "device_kernels": len(kernels),
+           "kernels_per_step": len(kernels) / max(sc.steps, 1), "busy_ms_per_step": busy_ms_step,
+           "profiled_window_ms": window / 1e3,
+           "idle_share_profiled": 1 - busy / window if window else None,
+           "idle_share_unprofiled": 1 - busy_ms_step / ms_step,
+           "top_kernels": dict(sorted(names.items(), key=lambda kv: -kv[1])[:12]),
+           "sessions": sessions, "windows": tries}
+    emit(row)
+    require(sc.steps > 0 and kernels, "block_profile: no step or no kernel seen")
+    return row
+
 
 SRT_CUE = re.compile(r"(\d+):(\d+):(\d+),(\d+) --> (\d+):(\d+):(\d+),(\d+)")
 
@@ -2413,41 +2641,61 @@ def random_tree(torch, shapes: dict, seed: int, dev) -> dict:
     return out
 
 
-def recorded_products(torch, run):
-    """(result of run(), one list per LM-head product in it of [top1, top2,
-    argmax, ids, values] per row of its logits: the two largest logits, the
-    argmax, and the ids and logits of the top four)."""
+def recorded_products(torch, run, keep=None):
+    """(result of run(), one list per LM-head product of a fed step in it, of
+    [top1, top2, argmax, ids, values] per row of its logits: the two largest
+    logits, the argmax, and the ids and logits of the top four). A decode
+    block's steps queued after its latch (which emit -1) are not fed steps
+    and are left out: the block's packed result names them. `keep(params)`
+    picks the products to record by their weights (all by default)."""
     from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+    from qwen3_asr_gguf_tpu_torch.runtime.generate import Generator
 
-    products, inner = [], dec.lm_logits
+    products, blocks, inner, dispatch = [], [], dec.lm_logits, Generator.decode_block_dispatch
 
-    def recording(*args, **kw):
-        out = inner(*args, **kw)
-        rows = []
-        for row in out.float().reshape(-1, out.shape[-1]):
-            top = torch.topk(row, 4)
-            vals = top.values.tolist()
-            rows.append([vals[0], vals[1], int(row.argmax()), top.indices.tolist(), vals])
-        products.append(rows)
+    def recording(params, *args, **kw):
+        out = inner(params, *args, **kw)
+        if keep is None or keep(params):
+            rows = []
+            for row in out.float().reshape(-1, out.shape[-1]):
+                top = torch.topk(row, 4)
+                vals = top.values.tolist()
+                rows.append([vals[0], vals[1], int(row.argmax()), top.indices.tolist(), vals])
+            products.append(rows)
         return out
 
-    dec.lm_logits = recording
+    def dispatching(self, *args, **kw):
+        first = len(products)
+        state, packed = dispatch(self, *args, **kw)
+        blocks.append((first, len(products), packed))
+        return state, packed
+
+    dec.lm_logits, Generator.decode_block_dispatch = recording, dispatching
     try:
-        return run(), products
+        result = run()
     finally:
-        dec.lm_logits = inner
+        dec.lm_logits, Generator.decode_block_dispatch = inner, dispatch
+    latched = set()
+    for first, end, packed in blocks:
+        if packed is not None:
+            emitted = packed.fetch()[:-2]
+            latched.update(j for j in range(first, end) if emitted[j - first] < 0)
+    return result, [p for j, p in enumerate(products) if j not in latched]
 
 
-def recorded_greedy(torch, run):
-    """(result of run(), [top1, top2, argmax] of every LM-head product in it)."""
-    result, products = recorded_products(torch, run)
+def recorded_greedy(torch, run, keep=None):
+    """(result of run(), [top1, top2, argmax] of every fed LM-head product in it)."""
+    result, products = recorded_products(torch, run, keep)
     return result, [row for rows in products for row in rows]
 
 
 def greedy_clip(torch, engine, audio):
     """(text, fed tokens, logits record) of the engine's greedy call on the
     whole clip with BATCH_NEW_TOKENS new tokens per chunk in one block
-    (below the breaker's window: no random retry), aligner off."""
+    (below the breaker's window: no random retry), aligner off. One block per
+    chunk is the pipelined chunk dispatch (chunk i+1 queued from chunk i's
+    emitted buffer); with no breaker no queued chunk is thrown away, and the
+    recorder leaves out steps queued after a latch."""
     gen = engine.generator
     saved = engine.aligner, engine.config.max_new_tokens, gen.block
     engine.aligner, engine.config.max_new_tokens, gen.block = (None, BATCH_NEW_TOKENS,
@@ -2911,14 +3159,17 @@ def main() -> int:
           "flags": _build.NVCC_FLAGS, "lib": str(_build.LIB_PATH.relative_to(REPO))})
 
     cfg = preset(PRESET)
-    kernel_rows = kernel_phase(torch, dev, cfg.text)
-    kernel_rows += rows_kernel_phase(torch, dev, cfg.text)
-    kernel_rows += attn_kernel_phase(torch, dev, cfg.text)
-    kernel_rows += decode_attn_kernel_phase(torch, dev, cfg.text)
-    kernel_rows += qmm_kernel_phase(torch, dev, cfg)
-    kernel_rows += mlp_kernel_phase(torch, dev)
-
-    model_dir = ensure_checkpoint()
+    # the checkpoints are written on a thread of their own (host work) while
+    # the kernel phases time the card (CUDA events on the device)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        checkpoint = pool.submit(ensure_checkpoint)
+        kernel_rows = kernel_phase(torch, dev, cfg.text)
+        kernel_rows += rows_kernel_phase(torch, dev, cfg.text)
+        kernel_rows += attn_kernel_phase(torch, dev, cfg.text)
+        kernel_rows += decode_attn_kernel_phase(torch, dev, cfg.text)
+        kernel_rows += qmm_kernel_phase(torch, dev, cfg)
+        kernel_rows += mlp_kernel_phase(torch, dev)
+        model_dir = checkpoint.result()
     t0 = time.time()
     engine = QwenASREngine(ASREngineConfig(
         model_dir=str(model_dir), llm_fn="qwen3_asr_llm.q4_k.gguf", precision="int4",
@@ -2980,8 +3231,14 @@ def main() -> int:
 
     # the same call without the aligner, and with the plain decode attention
     # in place of the kernel: host-clock times compare only inside one run
+    def ms_per_step(res, counts) -> float:
+        """The call's decode time per queued step (the counted normed matvecs)."""
+        steps = counts["q4k_matvec_normed"] // (2 * cfg.text.num_layers)
+        return res.performance["decode_time"] * 1e3 / max(steps, 1)
+
     aligner, fast = engine.aligner, attn.gqa_decode_attention
-    compare = {"aligned_kernel": timed_asr(0.4)[1]}
+    res, wall, counts = timed_asr(0.4)
+    compare, step_ms = {"aligned_kernel": wall}, {"aligned_kernel": ms_per_step(res, counts)}
     engine.aligner = None
     compare["aligner_off"] = timed_asr(0.4)[1]
     engine.aligner = aligner
@@ -2991,10 +3248,19 @@ def main() -> int:
     finally:
         attn.gqa_decode_attention = fast
     compare["aligned_kernel_again"] = timed_asr(0.4)[1]
+    engine.config.pipelined_dispatch = False  # the synchronous flow
+    try:
+        res, compare["pipelined_off"], counts = timed_asr(0.4)
+        step_ms["pipelined_off"] = ms_per_step(res, counts)
+    finally:
+        engine.config.pipelined_dispatch = True
     emit({"phase": "asr_compare", "temperature": 0.4, "audio_s": CLIP_SECONDS,
-          "wall_s": compare, "rtf": {k: v / CLIP_SECONDS for k, v in compare.items()}})
+          "wall_s": compare, "rtf": {k: v / CLIP_SECONDS for k, v in compare.items()},
+          "ms_per_step": step_ms})
     require(plain_counts["gqa_decode_attention"] == 0, "the plain attention launched the kernel")
 
+    asr_pipeline_phase(torch, engine, audio)
+    block_sync_free_phase(torch, engine, audio)
     decode_step_check(torch, engine)
     align_check(torch, engine, model_dir)
     emb = engine.encoder.encode(torch.from_numpy(audio[: 40 * 16_000]).to(dev))
@@ -3007,6 +3273,12 @@ def main() -> int:
         rows_step_check(torch, engine, kv)
     batcher_vs_engine_phase(torch, engine, audio)
     engine_greedy = greedy_clip(torch, engine, audio)  # tp_engine_nccl's reference
+    # block_profile's generator and chunk-0 prefill state, held to the end
+    # (the dense prefill copy is dropped)
+    block_gen = engine.generator
+    block_state = block_gen.start_spliced(*chunk_prompt(torch, engine, audio), temperature=0.4,
+                                          seed=0)
+    block_gen._prefill_params = None
     del engine
     torch.cuda.empty_cache()
 
@@ -3027,7 +3299,12 @@ def main() -> int:
     examples_phase(torch, dev, model_dir)
     kernel_rows += tp_kernel_phase(torch, dev, cfg.text)
     tp_launches = tp_phases(torch, dev, model_dir, audio, engine_greedy)
+    block_walls = time_blocks(torch, block_gen, block_state)
     device_kernels_phase(torch, dev, cfg.text)
+    # its one large profiler session last: the sessions after such a window
+    # lose events
+    block_profile_phase(torch, block_gen, block_state, block_walls)
+    del block_gen, block_state
     # each kernel's launches from the run of its own path
     launches["q4k_matmul_rows"] = served["launches"]["q4k_matmul_rows"]
     launches["gqa_rows_q8_attention"] = served_int8["launches"]["gqa_rows_q8_attention"]

@@ -161,6 +161,24 @@ def _write_cache(cache: dict, l: int, index, k: torch.Tensor, v: torch.Tensor) -
         cache["v"][l][index] = v.to(cache["v"][l].dtype)
 
 
+def _write_cache_at(cache: dict, l: int, slot: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> None:
+    """Write layer l's one new K/V row (k/v [1, Hkv, hd]) at the slot held in
+    the 1-element device tensor `slot`, in place: an index on the device, so
+    the write needs no host value."""
+    idx = slot.to(torch.int64)
+    if cache["k"][l].dtype == torch.int8:
+        kq, ksc = _quant_kv(k)
+        vq, vsc = _quant_kv(v)
+        cache["k"][l].index_copy_(0, idx, kq)
+        cache["k_s"][l].index_copy_(0, idx, ksc)
+        cache["v"][l].index_copy_(0, idx, vq)
+        cache["v_s"][l].index_copy_(0, idx, vsc)
+    else:
+        cache["k"][l].index_copy_(0, idx, k.to(cache["k"][l].dtype))
+        cache["v"][l].index_copy_(0, idx, v.to(cache["v"][l].dtype))
+
+
 def _read_cache_window(cache: dict, l: int, win: int, dtype) -> tuple[torch.Tensor, torch.Tensor]:
     """Layer l's first `win` cache slots as dense (k, v), dequantizing int8."""
     if cache["k"][l].dtype == torch.int8:
@@ -336,35 +354,36 @@ def split_mlp_weights(layer_list: list[Params]) -> list[Params]:
 
 def forward_step_layers(layer_list: list[Params], final_norm: torch.Tensor,
                         cfg: TextDecoderConfig, embd: torch.Tensor, cache: dict,
-                        pos: int, *, attn_window: int | None = None,
+                        pos, *, attn_window: int | None = None,
                         fused_mlp: bool = False, tp_group=None):
     """One decode step for the token at `pos` (embd [D]): each layer writes
     its K/V at `pos` BEFORE attending to the first `attn_window` slots
-    (slot <= pos). A bf16 or f32 cache attends through `ops.attn.
-    gqa_decode_attention` on the full cache: on the card it launches kernel 4
-    or raises (the window must be whole 256-slot tiles); on the CPU it runs
-    its plain version. The step makes `pos` a 1-element int32 tensor on the
-    device once, for the rope and for every layer's attention (the kernel
-    reads it there). An int8 cache keeps the plain attention on a
-    dequantized window. `fused_mlp`: every layer's MLP through the fused int8
-    kernel (see `_mlp`). `tp_group`: local tiles and cache, two
-    all-reduces per layer (see the module docstring). Returns (hidden [D],
-    cache)."""
+    (slot <= pos). `pos` is a 1-element int32 tensor on the device (the
+    Generator's block keeps it there: the rope, the cache write, the int8
+    mask and kernel 4 all read it on the device, so the step needs no host
+    value), or a host int, made such a tensor once here. A bf16 or f32 cache
+    attends through `ops.attn.gqa_decode_attention` on the full cache: on the
+    card it launches kernel 4 or raises (the window must be whole 256-slot
+    tiles); on the CPU it runs its plain version. An int8 cache keeps the
+    plain attention on a dequantized window. `fused_mlp`: every layer's MLP
+    through the fused int8 kernel (see `_mlp`). `tp_group`: local tiles and
+    cache, two all-reduces per layer (see the module docstring). Returns
+    (hidden [D], cache)."""
     s_max = cache["k"][0].shape[0]
     win = s_max if attn_window is None else min(attn_window, s_max)
     dev = embd.device
     scale = cfg.head_dim ** -0.5
-    pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)  # a fresh copy, not a mirror
+    pos_t = attn_ops.decode_pos(pos, dev)
     cos, sin = rope_cos_sin(pos_t, cfg.head_dim, cfg.rope_theta)
     int8_kv = cache["k"][0].dtype == torch.int8
     if int8_kv:
-        valid = (torch.arange(win, device=dev) <= pos)[None, :]
+        valid = (torch.arange(win, device=dev) <= pos_t)[None, :]
     h = embd[None, :]
     eps = cfg.rms_norm_eps
     for l, layer in enumerate(layer_list):
         q, k, v = _layer_qkv(layer, cfg, h, cos, sin, pre_norm=(layer["attn_norm"], eps),
                              tp_group=tp_group)
-        _write_cache(cache, l, pos, k[0], v[0])
+        _write_cache_at(cache, l, pos_t, k, v)
         if int8_kv:
             k_win, v_win = _read_cache_window(cache, l, win, k.dtype)
             attn = _gqa_attention(q, k_win, v_win, valid, scale)

@@ -24,8 +24,18 @@ def _topk_topp_draw(logits: torch.Tensor, generator: torch.Generator,
     probs = torch.softmax(scaled, dim=-1)
     cum_before = torch.cumsum(probs, dim=-1) - probs
     masked = torch.where(cum_before < top_p, scaled, torch.full_like(scaled, -float("inf")))
-    choice = torch.multinomial(torch.softmax(masked, dim=-1), 1, generator=generator)
+    choice = _categorical(torch.softmax(masked, dim=-1), generator)
     return torch.gather(idx, -1, choice)[:, 0]
+
+
+def _categorical(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One draw per row of `probs` [B, N] -> [B, 1]: the draw of
+    `torch.multinomial(probs, 1, generator=generator)` (its one-sample path:
+    argmax of p / q, q ~ Exp(1), from the same generator stream), without
+    its checks of the probabilities, which read them back to the host and
+    so would stop the host at every sampled token on the card."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1, keepdim=True)
 
 
 def sample_topk_topp(

@@ -14,9 +14,17 @@ The aligner only ever prefills, so on the card its quantized layer weights
 are dequantized once at init to dense bf16 (`dequant_prefill_params`, the JAX
 package's accelerator branch); on the CPU the containers are kept, which
 reproduces the JAX package's CPU results. `dense_prefill` overrides the
-choice. Not ported (ROADMAP.md, perf work): `pre_encode` and the speculative
-align dispatch, which overlap work with a device-to-host round trip and give
-exactly `align()`'s result.
+choice.
+
+For the engine's align worker: `pre_encode` queues the encoder for a window
+whose audio is known before its text, and `align(precomputed_key=...)`
+takes that encode. `spec_align_start` queues the whole alignment of a decode
+block that the host has not read yet, its prompt built on the device from
+the block's emitted tokens through the word-class table
+(`build_word_cls_table`, cached beside the model as
+`align_word_cls_v1_{n_vocab}.npy`); `spec_align_collect` takes it only when
+it is exactly `align()`'s prompt, and otherwise returns None for the caller
+to run `align()`.
 """
 
 from __future__ import annotations
@@ -96,6 +104,133 @@ class QwenForcedAligner:
         self.STEP_MS = thinker.timestamp_segment_ms or STEP_MS
         self._ko_scores: dict | None = None  # built lazily on first Korean align
         self._word_tok: dict[str, list[int]] = {}  # word -> token ids memo
+        self._pre: tuple | None = None  # (key, embd, n_audio, encode s) of a pre-encoded window
+        # the speculative align: the word-class table (host and device) and
+        # the dispatched alignment in flight
+        self._word_cls: np.ndarray | None = None
+        self._word_cls_dev: torch.Tensor | None = None
+        self._spec: dict | None = None
+        self._word_cls_path = os.path.join(
+            model_dir, f"align_word_cls_v1_{self.tokenizer.n_vocab}.npy")
+        if os.path.exists(self._word_cls_path):
+            try:
+                tab = np.load(self._word_cls_path)
+                if tab.shape == (self.tokenizer.n_vocab,):
+                    self._word_cls = tab.astype(np.int8)
+            except (OSError, ValueError):
+                pass
+
+    def build_word_cls_table(self) -> np.ndarray:
+        """Per-vocab-token word class for the speculative align prompt (JAX
+        aligner.py:114-150):
+
+          2  the token decodes to exactly one CJK character c and encode(c)
+             round-trips to [token]: `align()` would give it the same
+             `c TS TS` triplet (CJK text splits per character);
+          1  droppable: the general tokenizer finds no word in it (pure
+             punctuation or whitespace);
+          0  anything else: only the host path aligns it.
+
+        A token stream of classes 1 and 2 only concatenates to a text whose
+        words are exactly its class-2 characters, so the device prompt is
+        then `align()`'s prompt. Saved beside the model (best effort)."""
+        n = self.tokenizer.n_vocab
+        tab = np.zeros(n, dtype=np.int8)
+        for tid in range(n):
+            try:
+                s = self.tokenizer.token_to_bytes(tid).decode("utf-8")
+            except (UnicodeDecodeError, KeyError):
+                continue
+            if not align_text.tokenize_general(s):
+                tab[tid] = 1
+            elif (len(s) == 1 and align_text.is_cjk_char(s)
+                  and self.tokenizer.encode(s, allow_special=False) == [tid]):
+                tab[tid] = 2
+        self._word_cls = tab
+        try:
+            np.save(self._word_cls_path, tab)
+        except OSError:
+            pass
+        return tab
+
+    @_serialized
+    def pre_encode(self, audio, key) -> None:
+        """Queue the encoder for an upcoming align window ahead of its text;
+        `align(precomputed_key=key)` or `spec_align_start(key=key)` takes it."""
+        t0 = time.time()
+        embd = self.encoder.encode(audio)
+        self._pre = (key, embd, self.encoder.valid_tokens(int(audio.shape[-1])),
+                     time.time() - t0)
+
+    @_serialized
+    def spec_align_start(self, toks_dev: torch.Tensor, key, language: str,
+                         drop_last: int = 0) -> None:
+        """Queue the speculative alignment of a decode block still in flight:
+        `toks_dev` is the block's emitted buffer on the device, and the
+        window must have been `pre_encode`d under `key`. It is queued behind
+        the block on the device's stream; `spec_align_collect` takes it."""
+        self._spec = None
+        lang = (language or "").lower()
+        if lang in ("japanese", "korean"):  # tokenizers other than the general one
+            return
+        if self._word_cls is None or self._pre is None or self._pre[0] != key:
+            return
+        if self._word_cls_dev is None:
+            self._word_cls_dev = torch.from_numpy(self._word_cls).to(self.device)
+        _, audio_embd, n_audio, _ = self._pre  # kept: align() may still need it
+        limit = min(TIMESTAMP_CLASSES, self.dec_cfg.lm_head_dim)
+        out = self.runner.argmax_at_spec(
+            toks_dev, self._word_cls_dev, audio_embd, n_audio, limit,
+            (self.ID_AUDIO_START, self.ID_AUDIO_END, self.ID_TIMESTAMP), drop_last=drop_last)
+        if out is not None:
+            self._spec = {"key": key, "out": out, "lang": lang, "t0": time.time()}
+
+    @_serialized
+    def spec_align_collect(self, stable_tokens: list, text: str, language: str,
+                           offset_sec: float, key) -> ForcedAlignResult | None:
+        """The `spec_align_start` alignment of `key`, or None (the caller runs
+        `align()`). It is taken only when it is exact: every token is of
+        class 1 or 2, the class-2 characters equal `align()`'s own
+        `tokenize(text)`, and the device counted the same number of words.
+        A None keeps the pre-encoded window for `align()`."""
+        spec, self._spec = self._spec, None
+        if spec is None or spec["key"] != key or (language or "").lower() != spec["lang"]:
+            return None
+        tab = self._word_cls
+        toks = [int(t) for t in stable_tokens]
+        if any(t < 0 or t >= len(tab) or tab[t] == 0 for t in toks):
+            return None
+        kept = [t for t in toks if tab[t] == 2]
+        words = align_text.tokenize(text, language)
+        if [self.tokenizer.token_to_bytes(t).decode("utf-8") for t in kept] != words:
+            return None
+        t_dec0 = time.time()
+        out = spec["out"].fetch()
+        if int(out[-1]) != len(kept):
+            return None
+        if self._pre is not None and self._pre[0] == key:
+            self._pre = None  # the result stands: the window is not needed again
+        if not words:
+            return ForcedAlignResult(items=align_text.reconcile(text, []), performance={
+                "encoder_time": 0.0, "decoder_time": 0.0,
+                "total_time": time.time() - spec["t0"]})
+        items = self._items(words, out[: 2 * len(kept)].tolist(), offset_sec)
+        return ForcedAlignResult(items=align_text.reconcile(text, items), performance={
+            "encoder_time": 0.0, "decoder_time": time.time() - t_dec0,
+            "total_time": time.time() - spec["t0"], "speculative": 1.0})
+
+    def _items(self, words: list[str], raw_ts, offset_sec: float) -> list[ForcedAlignItem]:
+        """Word items from the raw timestamp classes (LIS-repaired, x STEP_MS)."""
+        fixed = align_text.fix_timestamps(raw_ts)
+        ms = np.asarray(fixed, dtype=np.float64) * self.STEP_MS
+        return [
+            ForcedAlignItem(
+                text=w,
+                start_time=float(ms[i * 2] / 1000.0 + offset_sec),
+                end_time=float(ms[i * 2 + 1] / 1000.0 + offset_sec),
+            )
+            for i, w in enumerate(words)
+        ]
 
     def _korean_scores(self) -> dict:
         """L-dictionary for Korean segmentation. A reference-format dict
@@ -171,6 +306,7 @@ class QwenForcedAligner:
         text: str,
         language: str = "Chinese",
         offset_sec: float = 0.0,
+        precomputed_key=None,  # take a `pre_encode`d window when its key matches
     ) -> ForcedAlignResult:
         if language:
             language = normalize_language_name(language)
@@ -180,10 +316,15 @@ class QwenForcedAligner:
         # embeddings stay on the device; only their count is needed on the
         # host. The full bucket-shaped tensor is passed through (the audio
         # span mask picks the n_audio valid rows).
-        t_enc0 = time.time()
-        audio_embd = self.encoder.encode(audio)
-        n_audio = self.encoder.valid_tokens(int(audio.shape[-1]))
-        t_enc = time.time() - t_enc0  # enqueue time: the device runs on under the prompt build
+        if (precomputed_key is not None and self._pre is not None
+                and self._pre[0] == precomputed_key):
+            _, audio_embd, n_audio, t_enc = self._pre  # the pre_encode's own enqueue time
+            self._pre = None
+        else:
+            t_enc0 = time.time()
+            audio_embd = self.encoder.encode(audio)
+            n_audio = self.encoder.valid_tokens(int(audio.shape[-1]))
+            t_enc = time.time() - t_enc0  # enqueue time: the device runs on under the prompt build
 
         ko_scores = self._korean_scores() if (language or "").lower() == "korean" else None
         words = align_text.tokenize(text, language, ko_scores=ko_scores)
@@ -199,17 +340,7 @@ class QwenForcedAligner:
         raw_ts = self.runner.argmax_at(ids, audio_mask, audio_embd, ts_positions, limit)
         t_dec = time.time() - t_dec0
 
-        fixed = align_text.fix_timestamps(raw_ts)
-        ms = np.asarray(fixed, dtype=np.float64) * self.STEP_MS
-        items = [
-            ForcedAlignItem(
-                text=w,
-                start_time=float(ms[i * 2] / 1000.0 + offset_sec),
-                end_time=float(ms[i * 2 + 1] / 1000.0 + offset_sec),
-            )
-            for i, w in enumerate(words)
-        ]
-        final_items = align_text.reconcile(text, items)
+        final_items = align_text.reconcile(text, self._items(words, raw_ts, offset_sec))
         return ForcedAlignResult(
             items=final_items,
             performance={

@@ -17,12 +17,17 @@ session, as the engine's chunk loop does.
 
 Both threads queue their device work on the device's default stream, so
 a staging prefill is complete on the device before the scatter that reads
-it. The flow is synchronous: a block is fetched before the next is queued
-(the JAX package's 1-deep block pipeline is not ported; it gives the same
-tokens). A request submitted with `timestamps=True` (on an engine with an
-aligner) is force-aligned after its last chunk on a one-thread align pool,
-chunk by chunk in the engine's windows, while the worker decodes on. Not
-ported (see ROADMAP.md): the vmapped body, `prewarm` and the trace switch.
+it. Blocks run in a 1-deep pipeline, as in the JAX package: block n+1 is
+queued before block n's result is read, and the rows' EOS latches are
+chained on the device from block to block (with the host's retirements
+OR-ed in), so a row that hit EOS in block n stops in block n+1 exactly as in
+the unpipelined flow (`QWEN3_CB_PIPELINE=0`: read each block before the
+next is queued; the same tokens). When every active row runs out of its
+token budget or its context in block n, block n is read first instead. A request submitted with
+`timestamps=True` (on an engine with an aligner) is force-aligned after its
+last chunk on a one-thread align pool, chunk by chunk in the engine's
+windows, while the worker decodes on. Not ported (see ROADMAP.md): the
+vmapped body, `prewarm` and the trace switch.
 
 Tensor-parallel serving (an engine built with `mesh_shape`): the rows step
 runs on every rank's local tiles and on row caches split on the kv heads,
@@ -34,13 +39,15 @@ temperatures, and which pending requests to admit); every rank then
 encodes, prefills and scatters the same admissions, decodes the same block
 and retires the same rows. Rank 0 runs the loop on the worker thread; the
 other ranks call `follow()`, which returns when rank 0's `close()` ends the
-loop. Admission runs between blocks there (no admission thread), and the
-aligner runs on rank 0 only.
+loop. Admission runs between blocks there (no admission thread), each
+block is read before the next is queued, and the aligner runs on rank 0
+only.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -55,7 +62,7 @@ from ..ops.qtensor import kernel_rows
 from ..ops.sampling import sample_rows
 from ..parallel.collectives import broadcast_object
 from ..schema import TranscribeResult
-from .generate import prompt_bucket, round_up
+from .generate import HostCopy, prompt_bucket, round_up, to_device
 
 logger = logging.getLogger(__name__)
 SAMPLE_RATE = 16_000
@@ -184,6 +191,9 @@ class ContinuousBatcher:
         self.greedy = np.ones(self.b, bool)
         self.dones = np.ones(self.b, bool)  # free rows stay "done"
         self.row_gen = np.zeros(self.b, np.int64)  # bumped at every retire
+        # the 1-deep block pipeline (JAX continuous.py:191-197); "0" reads
+        # each block before queueing the next
+        self.pipeline = os.environ.get("QWEN3_CB_PIPELINE") not in ("0", "")
 
         self._pending: List[_Request] = []
         self._ready: List[_Cohort] = []
@@ -464,8 +474,8 @@ class ContinuousBatcher:
                 if finished:
                     self._ready.pop(0)
             t0 = time.time()
-            rows_t = torch.tensor(rows, device=self.device)
-            lanes_t = torch.tensor(lanes, device=self.device)
+            rows_t = to_device(np.asarray(rows, np.int64), self.device)
+            lanes_t = to_device(np.asarray(lanes, np.int64), self.device)
             for name, live in self.caches.items():
                 for c, st in zip(live, cohort.staged[name]):
                     c[rows_t, : cohort.t_pad] = st[lanes_t]
@@ -490,13 +500,16 @@ class ContinuousBatcher:
                       host_dones: np.ndarray, win: int) -> torch.Tensor:
         """Queue `block` rows steps over all rows; returns the device
         [B, block + 1] result: the tokens fed (-1 once a row is done) and
-        the done latches. The host arrays are snapshots: a blocking copy of
-        a buffer the loop mutates afterwards would race a non_blocking one."""
+        the done latches. The host arrays are snapshots, and each goes to the
+        card through a pinned copy of its own (`to_device`): a copy from
+        pageable memory would wait for the block in flight, and a
+        non_blocking copy of a buffer the loop mutates afterwards would race
+        it."""
         dev = self.device
-        poss_d = torch.from_numpy(poss).to(dev)
-        temps_d = torch.from_numpy(temps).to(dev)
-        greedy_d = torch.from_numpy(greedy).to(dev)
-        dones = self.dones_dev | torch.from_numpy(host_dones).to(dev)
+        poss_d = to_device(poss, dev)
+        temps_d = to_device(temps, dev)
+        greedy_d = to_device(greedy, dev)
+        dones = self.dones_dev | to_device(host_dones, dev)
         toks = self.toks
         params, cfg = self.dec_params, self.cfg
         emitted = []
@@ -604,18 +617,27 @@ class ContinuousBatcher:
             performance=perf, language=req.language or req.detected_lang or "")
         req.done_evt.set()
 
-    def _process_block(self, packed: np.ndarray, snapshot: list) -> None:
-        """Take a fetched block's tokens into its rows and retire finished
-        rows. `snapshot` is [(row, generation)] at dispatch: a row retired
-        since then has a new generation and its lane is skipped."""
+    def _process_block(self, packed: HostCopy, snapshot: list) -> None:
+        """Read a queued block's result (its one fetch) into its rows and
+        retire finished rows. `snapshot` is [(row, generation)] at dispatch: a
+        row retired since then has a new generation and its lane is skipped
+        (the device only latched it; a re-admission's scatter is queued after
+        the block, and every step writes its KV slot before reading it)."""
+        t0 = time.time()
+        try:
+            arr = packed.fetch()
+        except Exception as e:  # a failed launch: nothing else can run
+            self._fail_active(e)
+            return
+        self._t_fetch += time.time() - t0
         for i, gen in snapshot:
             row = self.rows[i]
             if self.row_gen[i] != gen or row.req is None:
                 continue
-            row.tokens.extend(int(t) for t in packed[i, :-1] if t >= 0)
+            row.tokens.extend(int(t) for t in arr[i, :-1] if t >= 0)
             out_of_budget = (len(row.tokens) >= self.max_new_tokens
                              or row.pos + len(row.tokens) + self.block >= self.n_ctx)
-            if bool(packed[i, -1]) or out_of_budget:
+            if bool(arr[i, -1]) or out_of_budget:
                 self._retire(i)
 
     def _fail_active(self, err: Exception) -> None:
@@ -630,21 +652,33 @@ class ContinuousBatcher:
                 self.row_gen[i] += 1
 
     def _loop(self) -> None:
+        inflight = None  # (packed, snapshot) of the block queued last, not yet read
         while not self._stop:
             self._drain_ready()
             active = [i for i, r in enumerate(self.rows) if r.req is not None]
             if not active:
+                if inflight is not None:
+                    self._process_block(*inflight)
+                    inflight = None
+                    continue  # a retire may have freed admission
                 with self._lock:
                     if not self._pending and not self._ready:
                         self._work.clear()
                 self._work.wait(timeout=0.5)
                 continue
 
+            if inflight is not None and all(self._spent(i) for i in active):
+                # every active row retires when the block in flight is read:
+                # read it first, so no block runs only past their budgets
+                self._process_block(*inflight)
+                inflight = None
+                continue
+
             # fill gate: a block costs about as much with a few active rows
             # as with all of them, so while admissions are in flight and rows
             # are free, let staging land (capped at FILL_GATE_S); a lone
             # request with nothing queued behind it never waits here
-            if len(active) < self.max_batch:
+            if inflight is None and len(active) < self.max_batch:
                 t_gate = time.time()
                 while len(active) < self.max_batch and time.time() - t_gate < self.FILL_GATE_S:
                     with self._lock:
@@ -655,11 +689,28 @@ class ContinuousBatcher:
                     self._drain_ready()
                     active = [i for i, r in enumerate(self.rows) if r.req is not None]
 
-            self._run_block(active)
+            queued = self._dispatch_block(active)
+            if inflight is not None:
+                self._process_block(*inflight)  # read block n with block n+1 queued behind it
+            inflight = None
+            if queued is not None:
+                if self.pipeline:
+                    inflight = queued
+                else:
+                    self._process_block(*queued)
 
-    def _run_block(self, active: list) -> None:
-        """One decode block over all rows, its one fetch, and its tokens
-        taken into the active rows."""
+    def _spent(self, i: int) -> bool:
+        """Whether row i, with one block in flight, retires when that block
+        is read: it then holds a block more of tokens (or hit EOS), past its
+        token budget or its context (`_process_block`'s test)."""
+        row = self.rows[i]
+        n = len(row.tokens) + self.block
+        return n >= self.max_new_tokens or row.pos + n + self.block >= self.n_ctx
+
+    def _dispatch_block(self, active: list) -> Optional[tuple]:
+        """Queue one decode block over all rows -> (its packed result with the
+        copy to the host queued, [(row, generation)] of the active rows), or
+        None when the launch failed (its rows have failed)."""
         # attention window: the deepest active row, in 256-slot buckets
         win = min(self.s_cache, round_up(int(max(self.poss[i] for i in active)) + self.block,
                                          256))
@@ -669,19 +720,22 @@ class ContinuousBatcher:
         poss[active] = self.poss[active]
         t0 = time.time()
         try:
-            packed_dev = self._decode_block(poss, self.temps.copy(), self.greedy.copy(),
-                                            self.dones.copy(), win)
-            t1 = time.time()
-            packed = packed_dev.cpu().numpy()  # ONE fetch per block
+            packed = HostCopy(self._decode_block(poss, self.temps.copy(), self.greedy.copy(),
+                                                 self.dones.copy(), win))
         except Exception as e:  # a failed launch: nothing else can run
             self._fail_active(e)
-            return
-        self._t_dispatch += t1 - t0
-        self._t_fetch += time.time() - t1
+            return None
+        self._t_dispatch += time.time() - t0
         self._n_blocks += 1
         for i in active:
             self.poss[i] += self.block
-        self._process_block(packed, [(i, int(self.row_gen[i])) for i in active])
+        return packed, [(i, int(self.row_gen[i])) for i in active]
+
+    def _run_block(self, active: list) -> None:
+        """One decode block over all rows, read before anything else is queued."""
+        queued = self._dispatch_block(active)
+        if queued is not None:
+            self._process_block(*queued)
 
     # -- lockstep loop (under a mesh) -----------------------------------------
 

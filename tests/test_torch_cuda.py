@@ -1021,3 +1021,33 @@ def test_micro_batch_runs_q4_matmul_at_its_width(cuda, tmp_path, monkeypatch):
     launches = qmm.q4_matmul.launches - before
     assert rows and set(rows) == {5} and len(tokens) == 5
     assert launches == 113 * len(rows) + 5
+
+
+@pytest.mark.cuda
+def test_dispatched_chunk_and_block_never_wait_for_the_card(cuda, tmp_path):
+    """The engine's pipelined dispatch (prefill and one block, queued with
+    no wait) and a block dispatched behind it raise nothing under
+    `torch.cuda.set_sync_debug_mode("error")`, greedy and sampled: no step
+    of a block reads a value back from the card. Reading the block
+    (`collect_block`) waits, outside that mode."""
+    engine = _kernel_engine_28(tmp_path, cuda)
+    gen = engine.generator
+    t = np.arange(32_000) / 16_000
+    chunk = torch.from_numpy((np.sin(2 * np.pi * 440 * t) * 0.3).astype(np.float32)).to(cuda)
+    n_audio = engine.encoder.valid_tokens(len(t))
+    feat = engine.encoder.encode(chunk)[:n_audio]
+    ids, mask = engine._build_prompt_ids(n_audio, "", "", "English")
+    warm = engine._dispatch_chunk(ids, mask, feat, 0.4)  # first launches load and set up
+    gen.collect_block(warm["packed"])
+    torch.cuda.synchronize()
+    for temperature in (0.0, 0.4):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pend = engine._dispatch_chunk(ids, mask, feat, temperature)
+            _, packed = gen.decode_block_dispatch(pend["state"], temperature)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        toks, finished, _ = gen.collect_block(pend["packed"])
+        assert len(toks) == gen.block or finished
+        more, _, _ = gen.collect_block(packed)
+        assert finished or len(more) == gen.block
