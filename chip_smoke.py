@@ -55,7 +55,13 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    engine's greedy text against a ContinuousBatcher's at max_batch 8 on one
    40 s chunk, 15 new tokens (phase batcher_vs_engine: where they part, a
    near-tie within 2 bf16 ulp), and max_batch 4 on whole 8-row tiles of the
-   multi-row kernel (113 launches per batched step; 72 rows refused);
+   multi-row kernel (113 launches per batched step; 72 rows refused); then
+   a cohort of 16 greedy requests (3, 10 and 40 s tones and the clip's
+   second chunk with memory) staged at the server's defaults with bf16 and
+   int8 KV (phase cohort_prefill): the batched admission prefill (one lanes
+   pass of the decoder, one LM-head call) against the engine's prefill of
+   each prompt alone, KV rows and logits within 0.01 of max|engine| and the
+   first tokens equal or parted at a near-tie, both timed;
 9. the port's OpenAI-compatible server, built by its CLI's build function
    from real arguments (continuous batching, 8 rows, bf16 KV), answering 16
    concurrent 10 s requests and one 50.2 s request over HTTP, with
@@ -80,7 +86,7 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    the same PCM;
 15. the server at `--prec q4_k --max-batch 8` answering 8 concurrent 10 s
    requests over HTTP: q4_matmul at 8 rows on every product of the batched
-   step;
+   step, and once per staged cohort for its first tokens;
 16. the server from `--timestamp` (int4, 8 rows, the 0.6B aligner at int4):
    8 concurrent 10 s requests as verbose_json and srt and the 50.2 s clip,
    aligned on the continuous batcher's align pool; items on every answer
@@ -89,8 +95,10 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
 17. the server at `--batch-mode micro`, at the default `--prec int4` (served
    at int8) and at `--prec q4_k`: 8 concurrent 10 s requests through the
    MicroBatcher, each batched row's tokens against the engine's greedy
-   tokens by the near-tie rule; at int8 one batched rows step at 2 and 8
-   rows through torch._int_mm, bit-equal to the exact f64 route, both timed;
+   tokens by the near-tie rule; at q4_k q4_matmul 113 times per rows step
+   and once per batch (and as the engine runs a lone request); at int8 one
+   batched rows step at 2 and 8 rows through torch._int_mm, bit-equal to
+   the exact f64 route, both timed;
 18. QwenASREngine at precision "bf16" on a 1.7B f16 GGUF (its own directory
    under .bench_cache/torch/): kernel 4 once per layer per decode step, timed
    as phase 12, and the step check against the plain attention;
@@ -99,8 +107,7 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    launched;
 20. `cli/quant_accuracy.py` on the 1.7B checkpoint: the bars (encoder int4
    cosine >= 0.96, decoder hidden cosine >= 0.90), q4_matmul once per
-   `Q4Weight` product of its 64-row q4_k prefill, and the same report on the
-   CPU beside it;
+   `Q4Weight` product of its 64-row q4_k prefill;
 21. `cli/perplexity.py --compare f32` on the 1.7B q4_k GGUF over README.md
    (window 512, 2048 tokens): |delta| <= 9%, each precision timed, and the
    first window's f32 perplexity on the card within 1e-3 of the CPU's;
@@ -119,7 +126,9 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
 25. the kernels that one q4k_matvec call puts on the device (torch.profiler:
    one) and one q4k_matvec_normed call (one: the rms_norm is in its
    prologue), at each decode shape, and one fused_mlp_matvec call (one
-   cooperative launch) at both MLP shapes; then one 96-step decode block of
+   cooperative launch) at both MLP shapes; the device kernels of one
+   cohort_prefill batched call and of the lane-by-lane loop it replaces
+   (phase cohort_kernels); then one 96-step decode block of
    the headline engine (timed before these sessions) in one profiler window
    (phase block_profile: ms per step, device kernels per step, busy time,
    the card's idle share): last, so that no profiler session precedes a
@@ -773,6 +782,21 @@ class HttpServer:
             self.batcher.close()
 
 
+def cohort_widths(batcher) -> list:
+    """Wrap `batcher._stage_cohort` to record the lanes of every cohort it
+    stages (the admission thread calls it through the instance)."""
+    widths, inner = [], batcher._stage_cohort
+
+    def staging(reqs):
+        cohort = inner(reqs)
+        if cohort is not None:
+            widths.append(len(cohort.reqs))
+        return cohort
+
+    batcher._stage_cohort = staging
+    return widths
+
+
 def serve_phase(torch, dev, model_dir: Path, prec: str = "int4",
                 requests: int = SERVE_REQUESTS, long_request: bool = True) -> dict:
     """The port's server, built by its CLI from real arguments, on HTTP:
@@ -798,7 +822,8 @@ def serve_phase(torch, dev, model_dir: Path, prec: str = "int4",
         for counter in (q4k.q4k_matvec, q4k.q4k_matvec_normed, q4k.q4k_matmul_rows,
                         attn.gqa_rows_q8_attention, qmm.q4_matmul):
             counter.launches = 0
-        blocks0 = batcher.stats["n_blocks"]
+        blocks0, cohorts0 = batcher.stats["n_blocks"], batcher.stats["n_cohorts"]
+        widths = cohort_widths(batcher)
         t0 = time.time()
         results = srv.post_all(jobs)
         torch.cuda.synchronize()
@@ -817,21 +842,30 @@ def serve_phase(torch, dev, model_dir: Path, prec: str = "int4",
     lat = sorted(r[2] for r in results)
     audio_s = sum(len(a) for a, _ in jobs) / 16_000
     steps = (stats["batching"]["n_blocks"] - blocks0) * batcher.block
+    cohorts = stats["batching"]["n_cohorts"] - cohorts0
     row = {"phase": "serve" if prec == "int4" else f"serve_{prec}", "kv": "bf16", "argv": argv,
            "engine_init_s": init_s,
            "requests": len(jobs), "audio_s": audio_s, "wall_s": wall,
            "s_audio_per_s": audio_s / wall, "latency_p50_s": lat[len(lat) // 2],
            "latency_p95_s": lat[min(len(lat) - 1, math.ceil(0.95 * len(lat)) - 1)],
            "text_chars_min": min(len(t) for t in texts), "batcher": stats["batching"],
-           "decode_steps": steps, "launches": launches,
+           "decode_steps": steps, "cohorts": cohorts, "cohort_widths": widths,
+           "launches": launches,
            "rows_matmul_launches_per_step": launches[rows_kernel.__name__] / max(steps, 1)}
     emit(row)
     require(launches[rows_kernel.__name__] > 0, f"the rows kernel never launched: {launches}")
-    if prec == "q4_k":  # 4 products per layer and the head per step; the head once per prefill
-        per_step = 4 * engine.dec_cfg.num_layers + 1
-        require(launches["q4_matmul"] == per_step * steps + len(jobs),
+    per_step = 4 * engine.dec_cfg.num_layers + 1  # 4 products per layer and the head
+    require(len(widths) == cohorts, f"{row['phase']}: {cohorts} cohorts, {widths} staged")
+    if prec == "int4":  # a cohort's head: kernel 1 for one lane, kernel 3 for more
+        multi = sum(w > 1 for w in widths)
+        require(launches["q4k_matmul_rows"] == per_step * steps + multi
+                and launches["q4k_matvec"] == len(widths) - multi,
+                f"serve: {launches} for {steps} steps ({per_step} each) and cohorts of "
+                f"{widths} lanes")
+    if prec == "q4_k":  # per step; and the head once per cohort
+        require(launches["q4_matmul"] == per_step * steps + cohorts,
                 f"serve_q4_k: {launches['q4_matmul']} q4_matmul launches for {steps} steps "
-                f"({per_step} each) and {len(jobs)} one-chunk requests")
+                f"({per_step} each) and {cohorts} staged cohorts")
     del srv, engine, batcher
     torch.cuda.empty_cache()
     return row
@@ -1006,7 +1040,7 @@ class StepCounter:
     module), independently of the kernels' own launch counts."""
 
     NAMES = ("forward_step_layers", "forward_step_rows", "forward_prefill", "forward_prefill_at",
-             "lm_logits")
+             "forward_prefill_lanes", "lm_logits")
 
     def __enter__(self):
         from qwen3_asr_gguf_tpu_torch.models import decoder as dec
@@ -1518,6 +1552,200 @@ def batcher_vs_engine_phase(torch, engine, audio) -> dict:
             f"max_batch 4: {rows} rows, {launches} q4k_matmul_rows launches for {steps} steps")
     return row
 
+COHORT_TONES = (3.0, 10.0, 40.0)  # cohort_prefill: five tones of each, and the clip's chunk 1
+COHORT_BOUND = 1e-2  # of max|engine|: KV rows and logits, the bf16 bound of the kernel table
+
+
+def cohort_requests(torch, cb, engine, audio, mem_tokens: list) -> list:
+    """The cohort_prefill phase's 16 greedy requests: five tones each of
+    COHORT_TONES seconds and the 50.2 s clip's second chunk, which carries
+    chunk 0's audio feature and `mem_tokens` (the engine's greedy tokens of
+    chunk 0)."""
+    from qwen3_asr_gguf_tpu_torch.runtime.continuous import _Request
+
+    reqs = [_Request(audio=tone(sec, 230.0 + 40.0 * i), context="", language="Chinese",
+                     temperature=0.0)
+            for i, sec in enumerate(sec for sec in COHORT_TONES for _ in range(5))]
+    second = _Request(audio=audio, context="", language="Chinese", temperature=0.0, n_chunks=2)
+    chunk0 = cb._chunk_audio(second)
+    second.mem_feature = cb._encode([chunk0])[0][: engine.encoder.valid_tokens(len(chunk0))]
+    second.mem_tokens = list(mem_tokens)
+    second.chunk_idx = 1
+    return reqs + [second]
+
+
+def lane_prefills(torch, gen, prompts: list, cache: dict, t_pad: int):
+    """The engine's prefill of each prompt on its own (the lane-by-lane
+    staging that `prefill_cohort` replaces: `forward_prefill` at the
+    prompt's own bucket into its row of `cache`, and one `lm_logits` call)
+    -> logits [P, V]."""
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+    from qwen3_asr_gguf_tpu_torch.runtime.generate import prompt_bucket
+
+    params, cfg, last = gen.prefill_params, gen.step_cfg, []
+    for lane, (ids, mask, embd) in enumerate(prompts):
+        n = len(ids)
+        ids_p, mask_p = gen._padded_prompt(ids, mask, min(prompt_bucket(n), t_pad))
+        x = dec.splice_prompt(params, ids_p, mask_p, embd)
+        lane_cache = {name: [c[lane] for c in cs] for name, cs in cache.items()}
+        hidden, _ = dec.forward_prefill(params, cfg, x, lane_cache, length=n)
+        last.append(dec.lm_logits(params, hidden[n - 1], cfg.lm_head_dim))
+    return torch.stack(last)
+
+
+def cohort_prefill(torch, gen, prompts: list, cache: dict, t_pad: int):
+    from qwen3_asr_gguf_tpu_torch.runtime.generate import prefill_cohort
+
+    return prefill_cohort(gen.prefill_params, gen.step_cfg, prompts, cache, t_pad)
+
+
+def synced_median_s(torch, call, runs: int = 3) -> float:
+    """Median wall seconds of `runs` calls, each from and to a synchronized card."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        call()
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    return sorted(times)[len(times) // 2]
+
+
+def kv_lane_rows(torch, cache: dict, l: int, lens):
+    """Layer l's K and V of every lane as f32 [P, S, Hkv, hd] (int8
+    dequantized), and the mask of each lane's prompt slots [P, S]."""
+    out = []
+    for name in ("k", "v"):
+        x = cache[name][l].float()
+        if f"{name}_s" in cache:
+            x = x * cache[f"{name}_s"][l][..., None]
+        out.append(x)
+    valid = torch.arange(out[0].shape[1], device=out[0].device)[None, :] < lens[:, None]
+    return out, valid
+
+
+def cohort_prefill_phase(torch, engine, audio, mem_tokens: list) -> dict:
+    """A cohort of 16 greedy requests (COHORT_TONES and the clip's second
+    chunk with memory) at the server's defaults (`--max-batch 8 --n-ctx
+    2048`, int4 with its dense bf16 prefill weights), with bf16 and with
+    int8 KV: the batched admission prefill (`generate.prefill_cohort`: one
+    lanes pass, one LM-head call) against the engine's prefill of each
+    prompt on its own. Per lane, KV rows [0:len) of every layer and the
+    first-token logits within COHORT_BOUND of max|engine|, and the greedy
+    first tokens equal or parted at a near-tie within 2 bf16 ulp. Both timed
+    (synchronized, median of 3); `_stage_cohort` (encode included) runs the
+    same requests in one lanes pass and one head. Returns what the device
+    count at the end (`cohort_kernels_phase`) needs."""
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+    from qwen3_asr_gguf_tpu_torch.runtime.continuous import ContinuousBatcher
+    from qwen3_asr_gguf_tpu_torch.runtime.generate import prompt_bucket
+
+    t_phase = time.time()
+    gen, dev = engine.generator, engine.device
+    cb = ContinuousBatcher(engine, max_batch=8, block=16)
+    try:
+        reqs = cohort_requests(torch, cb, engine, audio, mem_tokens)
+        chunks = [cb._chunk_audio(r) for r in reqs]
+        prompts = [cb._build_admission(r, c, cur)
+                   for r, c, cur in zip(reqs, chunks, cb._encode(chunks))]
+        lens = [len(ids) for ids, _, _ in prompts]
+        t_pad = min(prompt_bucket(max(lens)), cb.n_ctx)
+        lens_d = torch.tensor(lens, device=dev)
+        p = len(prompts)
+        row = {"phase": "cohort_prefill", "lanes": p, "prompt_tokens": lens, "t_pad": t_pad,
+               "lane_groups": len(dec.lane_groups(p, gen.step_cfg.num_heads, t_pad)),
+               "score_budget_bytes": dec.PREFILL_SCORE_BYTES}
+        for kv in (torch.bfloat16, torch.int8):
+            name = "bf16" if kv == torch.bfloat16 else "int8"
+            caches = [dec.init_cache(gen.step_cfg, t_pad, kv, device=dev, rows=p) for _ in (0, 1)]
+            got = cohort_prefill(torch, gen, prompts, caches[0], t_pad).float()
+            want = lane_prefills(torch, gen, prompts, caches[1], t_pad).float()
+            kv_err = []
+            for l in range(gen.step_cfg.num_layers):
+                (gk, gv), valid = kv_lane_rows(torch, caches[0], l, lens_d)
+                (wk, wv), _ = kv_lane_rows(torch, caches[1], l, lens_d)
+                for g_, w_ in ((gk, wk), (gv, wv)):
+                    err = ((g_ - w_).abs().amax(dim=(2, 3)) * valid).amax(dim=1)
+                    ref = (w_.abs().amax(dim=(2, 3)) * valid).amax(dim=1)
+                    kv_err.append(err / ref)
+            kv_rel = torch.stack(kv_err).amax(dim=0).tolist()  # per lane
+            logit_rel = ((got - want).abs().amax(dim=1)
+                         / want.abs().amax(dim=1)).tolist()
+            top = torch.topk(want, 2, dim=1).values.tolist()
+            firsts = got.argmax(dim=1).tolist(), want.argmax(dim=1).tolist()
+            parted = [{"lane": i, "engine_top2_margin": top[i][0] - top[i][1],
+                       "margin_limit": 2 * bf16_ulp(top[i][0])}
+                      for i in range(p) if firsts[0][i] != firsts[1][i]]
+            batched_s = synced_median_s(torch, lambda: cohort_prefill(torch, gen, prompts,
+                                                                      caches[0], t_pad))
+            lane_s = synced_median_s(torch, lambda: lane_prefills(torch, gen, prompts,
+                                                                  caches[1], t_pad))
+            row[name] = {"kv_rel_err_max": max(kv_rel), "logits_rel_err_max": max(logit_rel),
+                         "first_tokens_equal": p - len(parted), "parted": parted,
+                         "batched_s": batched_s, "per_lane_s": lane_s,
+                         "per_lane_over_batched": lane_s / batched_s}
+            require(max(kv_rel) <= COHORT_BOUND, f"cohort_prefill {name}: KV rows {kv_rel}")
+            require(max(logit_rel) <= COHORT_BOUND,
+                    f"cohort_prefill {name}: logits {logit_rel}")
+            require(all(x["engine_top2_margin"] <= x["margin_limit"] for x in parted),
+                    f"cohort_prefill {name}: first tokens part beyond a near-tie: {parted}")
+            require(all(math.isfinite(x) for x in kv_rel + logit_rel), "not finite")
+            del caches
+        with StepCounter() as counter:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            cohort = cb._stage_cohort(reqs)
+            torch.cuda.synchronize()
+            row["stage_cohort_s"] = time.time() - t0
+        row["stage_cohort_calls"] = {k: counter.n[k] for k in (
+            "forward_prefill_lanes", "forward_prefill", "lm_logits")}
+        require(row["stage_cohort_calls"] == {"forward_prefill_lanes": 1, "forward_prefill": 0,
+                                              "lm_logits": 1},
+                f"cohort_prefill: _stage_cohort made {row['stage_cohort_calls']}")
+        require(cohort is not None and len(cohort.reqs) == p and cohort.t_pad == t_pad,
+                "cohort_prefill: _stage_cohort dropped a request")
+    finally:
+        cb.close()
+    row["seconds"] = time.time() - t_phase
+    emit(row)
+    return {"prompts": prompts, "t_pad": t_pad, "row": row}
+
+
+def cohort_kernels_phase(torch, gen, held: dict) -> dict:
+    """The device kernels of one cohort_prefill batched call and of the
+    engine's lane-by-lane loop over the same 16 prompts (torch.profiler
+    through `device_window`, as block_profile counts them; the loop one
+    lane per session, so that no window is large), on the headline
+    generator's prefill weights, derived again and dropped after."""
+    from qwen3_asr_gguf_tpu_torch.models import decoder as dec
+
+    prompts, t_pad = held["prompts"], held["t_pad"]
+    cache = dec.init_cache(gen.step_cfg, t_pad, torch.bfloat16, device=gen.device,
+                           rows=len(prompts))
+    try:
+        cohort_prefill(torch, gen, prompts, cache, t_pad)
+        torch.cuda.synchronize()
+        kernels, sessions = device_window(
+            torch, lambda: cohort_prefill(torch, gen, prompts, cache, t_pad))
+        counts, tries = {"batched": len(kernels), "per_lane": []}, {"batched": sessions}
+        for lane, prompt in enumerate(prompts):
+            row = {name: [c[lane: lane + 1] for c in cs] for name, cs in cache.items()}
+            kernels, tries[f"lane_{lane}"] = device_window(
+                torch, lambda: lane_prefills(torch, gen, [prompt], row, t_pad))
+            counts["per_lane"].append(len(kernels))
+    finally:
+        gen._prefill_params = None
+        del cache
+        torch.cuda.empty_cache()
+    per_lane = sum(counts["per_lane"])
+    row = {"phase": "cohort_kernels", "lanes": len(prompts), "t_pad": t_pad,
+           "device_kernels": {"batched": counts["batched"], "per_lane": per_lane},
+           "per_lane_by_lane": counts["per_lane"], "sessions": tries}
+    emit(row)
+    require(0 < counts["batched"] < per_lane, f"cohort_kernels: {row['device_kernels']}")
+    return row
+
+
 def chunk_prompt(torch, engine, audio):
     """(ids, mask, embeddings) of the headline call's first chunk prompt: the
     clip's first 40 s, "Chinese", no carried text."""
@@ -1799,6 +2027,7 @@ def serve_timestamp_phase(torch, dev, model_dir: Path) -> dict:
     with HttpServer(argv, max_new_tokens=96, decode_block=96) as srv:
         require(srv.batcher.supports_timestamps, "the batcher takes no timestamps")
         blocks0 = srv.batcher.stats["n_blocks"]
+        widths = cohort_widths(srv.batcher)
         q4k.q4k_matmul_rows.launches = qmm.q4_matmul.launches = 0
         t0 = time.time()
         results = srv.post_all(jobs)
@@ -1822,16 +2051,18 @@ def serve_timestamp_phase(torch, dev, model_dir: Path) -> dict:
     row = {"phase": "serve_timestamp", "argv": argv, "engine_init_s": init_s,
            "requests": len(jobs), "formats": [f for _, f in jobs], "wall_s": wall,
            "audio_s": sum(len(a) for a, _ in jobs) / 16_000, "items_or_srt_cues": n_items,
-           "batcher": stats["batching"], "decode_steps": steps,
+           "batcher": stats["batching"], "decode_steps": steps, "cohort_widths": widths,
            "q4k_matmul_rows_launches": launches, "q4_matmul_launches": qmm_launches,
            "rows_matmul_launches_per_step": launches / max(steps, 1),
            "seconds": time.time() - t_phase}
     emit(row)
     require(sum(n_items) > 0, "no aligned items at all")
     require(qmm_launches > 0, "serve_timestamp: q4_matmul never launched on the short request")
-    require(steps > 0 and launches == per_step * steps,
+    # and one head per cohort of more than one lane (one lane: kernel 1)
+    multi = sum(w > 1 for w in widths)
+    require(steps > 0 and launches == per_step * steps + multi,
             f"serve_timestamp: {launches} q4k_matmul_rows launches for {steps} steps "
-            f"({per_step} each)")
+            f"({per_step} each) and {multi} cohorts of more than one lane ({widths})")
     torch.cuda.empty_cache()
     return row
 
@@ -1971,7 +2202,21 @@ def serve_micro_phase(torch, dev, model_dir: Path, prec: str = "int4") -> dict:
            "greedy_batch_widths": [len(b) for b in batches]}
     require(stats["batches"] >= 1, f"{name}: no micro batch formed")
     if prec == "q4_k":
-        require(launches["q4_matmul"] > 0, f"{name}: q4_matmul never launched")
+        # 4 products per layer and the head per rows step and per step of a
+        # lone request on the engine; the head once per batch (its lanes
+        # prefill) and once per engine prefill
+        per_step = 4 * engine.dec_cfg.num_layers + 1
+        want = (per_step * (counter.n["forward_step_rows"] + counter.steps)
+                + counter.n["forward_prefill_lanes"] + counter.prefills)
+        row.update(q4_matmul_per_step=per_step, engine_steps=counter.steps,
+                   engine_prefills=counter.prefills,
+                   batch_prefills=counter.n["forward_prefill_lanes"])
+        require(counter.n["forward_prefill_lanes"] == stats["batches"] == len(served),
+                f"{name}: {counter.n['forward_prefill_lanes']} lanes prefills for "
+                f"{stats['batches']} batches")
+        require(launches["q4_matmul"] == want,
+                f"{name}: {launches['q4_matmul']} q4_matmul launches, {want} expected "
+                f"({per_step} per rows or engine step, one per batch and engine prefill)")
     lone = [(a, res.text) for a, res in zip(heard, greedy) if key(a) not in tokens]
     for audio, text in lone:  # ran on the engine as it serves
         require(text == greedy_engine_tokens(torch, engine, audio)[0].text,
@@ -2162,9 +2407,8 @@ def quant_accuracy_phase(torch, dev, model_dir: Path) -> dict:
     """`cli/quant_accuracy.py main` on the 1.7B q4_k checkpoint: exit code 0,
     the encoder int4 cosine >= 0.96 and the decoder hidden cosine >= 0.90;
     the 64-row q4_k prefill takes every `Q4Weight` product of the call
-    through q4_matmul (the encoders' 130 rows dequantize). The same main on
-    the CPU gives the values the card's are set beside (there the products
-    dequantize too)."""
+    through q4_matmul (the encoders' 130 rows dequantize). The CPU's values
+    are the tests' (tests/test_torch_fidelity.py), not rerun here."""
     from qwen3_asr_gguf_tpu_torch.cli import quant_accuracy
     from qwen3_asr_gguf_tpu_torch.ops import qmm
 
@@ -2175,15 +2419,9 @@ def quant_accuracy_phase(torch, dev, model_dir: Path) -> dict:
                                                     "--device", str(dev)]))
     torch.cuda.synchronize()
     launches = qmm.q4_matmul.launches
-    card_s = time.time() - t_phase
     report = json.loads(out)
-    t0 = time.time()
-    cpu_rc, cpu_out = captured(lambda: quant_accuracy.main(["--model-dir", str(model_dir),
-                                                            "--device", "cpu"]))
-    cpu = json.loads(cpu_out)
-    row = {"phase": "quant_accuracy", "rc": rc, "report": report, "cpu_rc": cpu_rc,
-           "cpu_report": cpu, "q4_weight_products": products,
-           "launches": {"q4_matmul": launches}, "card_s": card_s, "cpu_s": time.time() - t0,
+    row = {"phase": "quant_accuracy", "rc": rc, "report": report,
+           "q4_weight_products": products, "launches": {"q4_matmul": launches},
            "seconds": time.time() - t_phase}
     emit(row)
     require(rc == 0 and report["encoder_pass"] and report["decoder_pass"],
@@ -2791,13 +3029,22 @@ def lockstep_batcher_run(torch, engine) -> dict:
             "seconds": time.time() - t0}
 
 
-def tp_engine(torch, model_dir: str, mesh_shape, dev, kv: str = "bf16"):
+def with_int8_kv(torch, engine):
+    """`engine` with its generator's KV cache dtype set to int8, as
+    `kv_cache_dtype="int8"` builds it (a batcher takes its caches' dtype from
+    there), without loading the checkpoint again."""
+    engine.config.kv_cache_dtype = "int8"
+    engine.generator.cache_dtype = torch.int8
+    return engine
+
+
+def tp_engine(torch, model_dir: str, mesh_shape, dev):
     from qwen3_asr_gguf_tpu_torch import ASREngineConfig, QwenASREngine
 
     return QwenASREngine(ASREngineConfig(
         model_dir=model_dir, llm_fn="qwen3_asr_llm.q4_k.gguf", precision="int4", n_ctx=2048,
         chunk_size=40.0, memory_num=1, verbose=False, max_new_tokens=96, decode_block=96,
-        kv_prefix_reuse=True, kv_cache_dtype=kv, enable_aligner=False, mesh_shape=mesh_shape,
+        kv_prefix_reuse=True, kv_cache_dtype="bf16", enable_aligner=False, mesh_shape=mesh_shape,
     ), device=dev)
 
 
@@ -2854,9 +3101,7 @@ def _world_one_rank(rank, world, device, model_dir, audio, ref_path):
     out["text"], out["tokens"], _ = greedy_clip(torch, engine, audio)
     out["clip_s"] = time.time() - t0
     out["batcher_bf16"] = lockstep_batcher_run(torch, engine)
-    del engine
-    engine = tp_engine(torch, model_dir, {"model": 1}, dev, kv="int8")
-    out["batcher_int8"] = lockstep_batcher_run(torch, engine)
+    out["batcher_int8"] = lockstep_batcher_run(torch, with_int8_kv(torch, engine))
     del engine
     torch.cuda.empty_cache()
 
@@ -2978,14 +3223,16 @@ def _tp_world_rank(rank, world, device, model_dir, ref_path, ckpt_path):
     torch.cuda.empty_cache()
 
     # tp_batcher: the 1.7B int4 checkpoint at full depth, bf16 and int8 KV
+    t0 = time.time()
+    engine = tp_engine(torch, model_dir, {"model": world}, dev)
+    init_s = time.time() - t0
     for kv in ("bf16", "int8"):
-        t0 = time.time()
-        engine = tp_engine(torch, model_dir, {"model": world}, dev, kv=kv)
-        init_s = time.time() - t0
+        if kv == "int8":
+            engine = with_int8_kv(torch, engine)
         out[f"batcher_{kv}"] = {**lockstep_batcher_run(torch, engine), "engine_init_s": init_s,
                                 "layers": engine.dec_cfg.num_layers}
-        del engine
-        torch.cuda.empty_cache()
+    del engine
+    torch.cuda.empty_cache()
 
     # tp_train: the 2-layer cut against the world of one, then a checkpoint round trip
     t0 = time.time()
@@ -3273,6 +3520,8 @@ def main() -> int:
         rows_step_check(torch, engine, kv)
     batcher_vs_engine_phase(torch, engine, audio)
     engine_greedy = greedy_clip(torch, engine, audio)  # tp_engine_nccl's reference
+    # chunk 1 carries chunk 0's greedy tokens less the 5-token rollback
+    cohort_held = cohort_prefill_phase(torch, engine, audio, engine_greedy[1][:10])
     # block_profile's generator and chunk-0 prefill state, held to the end
     # (the dense prefill copy is dropped)
     block_gen = engine.generator
@@ -3301,6 +3550,8 @@ def main() -> int:
     tp_launches = tp_phases(torch, dev, model_dir, audio, engine_greedy)
     block_walls = time_blocks(torch, block_gen, block_state)
     device_kernels_phase(torch, dev, cfg.text)
+    cohort_kernels_phase(torch, block_gen, cohort_held)
+    del cohort_held
     # its one large profiler session last: the sessions after such a window
     # lose events
     block_profile_phase(torch, block_gen, block_state, block_walls)

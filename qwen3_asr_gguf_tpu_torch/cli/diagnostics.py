@@ -17,21 +17,8 @@ import time
 
 import numpy as np
 
+from ..utils.profiling import device_memory_report
 from .device import cli_device
-
-
-def memory_report(device) -> dict:
-    """Bytes held by PyTorch's allocator on a CUDA device, and the card's
-    free and total memory; {} for any other device."""
-    import torch
-
-    if device.type != "cuda":
-        return {}
-    free, total = torch.cuda.mem_get_info(device)
-    return {"memory_allocated": torch.cuda.memory_allocated(device),
-            "memory_reserved": torch.cuda.memory_reserved(device),
-            "max_memory_allocated": torch.cuda.max_memory_allocated(device),
-            "mem_free": int(free), "mem_total": int(total)}
 
 
 def _sync(device) -> None:
@@ -58,7 +45,7 @@ def main(argv=None) -> int:
 
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     report: dict = {"backend": device.type, "device": name}
-    report["memory_baseline"] = memory_report(device)
+    report["memory_baseline"] = device_memory_report(device)
 
     t0 = time.time()
     path = os.path.join(args.model_dir, args.encoder_fn)
@@ -69,7 +56,7 @@ def main(argv=None) -> int:
     runner = EncoderRunner(enc_params, enc_cfg, device=device)
     _sync(device)
     report["encoder_load_s"] = round(time.time() - t0, 2)
-    report["memory_after_load"] = memory_report(device)
+    report["memory_after_load"] = device_memory_report(device)
 
     audio = np.random.default_rng(0).standard_normal(
         int(16_000 * args.seconds)
@@ -87,7 +74,7 @@ def main(argv=None) -> int:
     report["encoder_seconds_audio"] = args.seconds
     report["encoder_time_s"] = round(best, 4)
     report["encoder_rtf"] = round(best / args.seconds, 5)
-    report["memory_peak"] = memory_report(device)
+    report["memory_peak"] = device_memory_report(device)
 
     print(json.dumps(report, indent=2))
     return 0

@@ -12,7 +12,9 @@ Parameters are a plain dict: {"embed": [V, D], "layers": [per-layer dict,
 The KV cache is {"k": [L x [S, Hkv, hd]], "v": [...]}, updated in place; an
 int8 cache adds f32 per-(slot, head) scales {"k_s": [L x [S, Hkv]], "v_s"}.
 The batched serving step (`forward_step_rows`) takes the same layout with a
-leading row axis: [B, S, Hkv, hd] and [B, S, Hkv].
+leading row axis: [B, S, Hkv, hd] and [B, S, Hkv], and so does the
+batchers' admission prefill (`forward_prefill_lanes`), which runs a cohort
+of P prompts as one pass over P x T rows, its attention in lane groups.
 
 Tensor parallelism (`tp_group`, a process group; None runs the whole
 model): the weights are one rank's Megatron tiles (`parallel.sharding`), the
@@ -39,6 +41,9 @@ from .configs import TextDecoderConfig
 
 Params = dict[str, Any]
 MASKED = -1e30  # masked score: a fully masked row gives a uniform softmax, not NaN
+# f32 attention scores of one lane group of a cohort prefill
+# (`forward_prefill_lanes`): at the 1.7B widths 4 lanes at T = 2048, 28 at 768
+PREFILL_SCORE_BYTES = 1 << 30
 
 
 # --------------------------------------------------------------------------
@@ -72,19 +77,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def _gqa_attention(q, k, v, mask, scale):
-    """q [T, Hq, d], k/v [S, Hkv, d], mask [T, S] bool -> [T, Hq, d].
-    Products of the operands' dtype, summed in f32."""
-    t, hq, d = q.shape
-    hkv = k.shape[1]
+    """q [..., T, Hq, d], k/v [..., S, Hkv, d], mask [..., T, S] bool ->
+    [..., T, Hq, d]; the leading dims (the lanes of a cohort prefill) are
+    the same in all four. Products of the operands' dtype, summed in f32."""
+    *lead, t, hq, d = q.shape
+    hkv = k.shape[-2]
     g = hq // hkv
-    qg = q.reshape(t, hkv, g, d).permute(1, 2, 0, 3).float()  # [Hkv, G, T, d]
-    kg = k.permute(1, 0, 2).float()  # [Hkv, S, d]
-    vg = v.permute(1, 0, 2)
-    scores = torch.matmul(qg, kg[:, None].transpose(-1, -2)) * scale  # [Hkv, G, T, S]
-    scores = scores.masked_fill(~mask[None, None], MASKED)
+    qg = q.reshape(*lead, t, hkv, g, d).movedim(-4, -2).float()  # [..., Hkv, G, T, d]
+    kg = k.transpose(-3, -2).float()  # [..., Hkv, S, d]
+    vg = v.transpose(-3, -2)
+    scores = torch.matmul(qg, kg.unsqueeze(-3).transpose(-1, -2)) * scale  # [..., Hkv, G, T, S]
+    scores = scores.masked_fill(~mask[..., None, None, :, :], MASKED)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.matmul(probs.to(vg.dtype).float(), vg[:, None].float())  # [Hkv, G, T, d]
-    return out.permute(2, 0, 1, 3).reshape(t, hq, d).to(q.dtype)
+    out = torch.matmul(probs.to(vg.dtype).float(), vg.unsqueeze(-3).float())  # [..., Hkv, G, T, d]
+    return out.movedim(-2, -4).reshape(*lead, t, hq, d).to(q.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -266,15 +272,15 @@ def _mlp(layer: Params, x: torch.Tensor, pre_norm: tuple | None = None, *,
     return reduce_from_tp(matmul(act, layer["down_proj"]), tp_group)
 
 
-def _block(layer: Params, cfg: TextDecoderConfig, h, cos, sin, keys, values, mask, scale,
-           tp_group=None):
-    """Prefill block body; `keys`/`values` map this layer's fresh (k, v) to
-    the key/value sequence attended to. Returns (h, k, v)."""
-    t = h.shape[0]
+def _block(layer: Params, cfg: TextDecoderConfig, h, cos, sin, attend, tp_group=None):
+    """Prefill block body over the rows h [N, D]; `attend(q, k, v)` takes
+    this layer's fresh q/k/v rows ([N, heads, hd]) to the attention output
+    (N x Hq x hd values). Returns (h, k, v)."""
+    n = h.shape[0]
     attn_in = rms_norm(h, layer["attn_norm"], cfg.rms_norm_eps)
     q, k, v = _layer_qkv(layer, cfg, attn_in, cos, sin, tp_group=tp_group)
-    attn = _gqa_attention(q, keys(k), values(v), mask, scale)
-    h = h + reduce_from_tp(matmul(attn.reshape(t, -1), layer["o_proj"]), tp_group)
+    attn = attend(q, k, v)
+    h = h + reduce_from_tp(matmul(attn.reshape(n, -1), layer["o_proj"]), tp_group)
     mlp_in = rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps)
     return h + _mlp(layer, mlp_in, tp_group=tp_group), k, v
 
@@ -293,11 +299,55 @@ def forward_prefill(params: Params, cfg: TextDecoderConfig, embd: torch.Tensor,
         mask = mask & (positions[None, :] < length)
     h = embd
     for l, layer in enumerate(params["layers"]):
-        h, k, v = _block(layer, cfg, h, cos, sin, lambda k: k, lambda v: v, mask, scale,
-                         tp_group)
+        h, k, v = _block(layer, cfg, h, cos, sin,
+                         lambda q, k, v: _gqa_attention(q, k, v, mask, scale), tp_group)
         if cache is not None:
             _write_cache(cache, l, slice(0, t), k, v)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
+
+
+def lane_groups(p: int, heads: int, t: int) -> list[slice]:
+    """The lanes of a P-lane prefill at T tokens in groups whose f32
+    attention scores ([lanes, heads, T, T]) fit PREFILL_SCORE_BYTES, one
+    lane at the least."""
+    per = max(1, PREFILL_SCORE_BYTES // (heads * t * t * 4))
+    return [slice(i, min(i + per, p)) for i in range(0, p, per)]
+
+
+def forward_prefill_lanes(params: Params, cfg: TextDecoderConfig, embd: torch.Tensor,
+                          cache: dict, lengths, *, tp_group=None):
+    """Causal prefill of P lanes from position 0, the lanes form of
+    `forward_prefill` (the JAX package vmaps that over a cohort): embd
+    [P, T, D]; `lengths` [P] (an integer tensor on embd's device; <= T)
+    masks each lane's padding keys; `cache` is a row cache of P rows
+    ([P, S >= T, ...]), written at slots [0, T) with one write per layer and
+    cache tensor. The projections, norms and MLP run over all P x T rows at
+    once (two all-reduces per layer under `tp_group`); the attention runs in
+    `lane_groups`. Returns (hidden [P, T, D], cache)."""
+    p, t, d = embd.shape
+    dev = embd.device
+    scale = cfg.head_dim ** -0.5
+    positions = torch.arange(t, device=dev)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = cos.repeat(p, 1), sin.repeat(p, 1)  # every lane starts at position 0
+    lengths = torch.as_tensor(lengths, device=dev)
+    mask = ((positions[:, None] >= positions[None, :])[None]
+            & (positions[None, None, :] < lengths[:, None, None]))  # [P, T, T]
+    groups = lane_groups(p, cfg.num_heads, t)
+
+    def lanes(x):
+        return x.reshape(p, t, *x.shape[1:])
+
+    def attend(q, k, v):
+        q, k, v = lanes(q), lanes(k), lanes(v)
+        outs = [_gqa_attention(q[g], k[g], v[g], mask[g], scale) for g in groups]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    h = embd.reshape(p * t, d)
+    for l, layer in enumerate(params["layers"]):
+        h, k, v = _block(layer, cfg, h, cos, sin, attend, tp_group)
+        _write_cache(cache, l, (slice(None), slice(0, t)), lanes(k), lanes(v))
+    return rms_norm(h, params["final_norm"], cfg.rms_norm_eps).reshape(p, t, d), cache
 
 
 def forward_prefill_at(params: Params, cfg: TextDecoderConfig, embd: torch.Tensor,
@@ -322,9 +372,9 @@ def forward_prefill_at(params: Params, cfg: TextDecoderConfig, embd: torch.Tenso
         k_pre, v_pre = _read_cache_window(cache, l, prefix_window, embd.dtype)
         h, k, v = _block(
             layer, cfg, h, cos, sin,
-            lambda k: torch.cat([k_pre.to(k.dtype), k]),
-            lambda v: torch.cat([v_pre.to(v.dtype), v]),
-            mask, scale, tp_group,
+            lambda q, k, v: _gqa_attention(q, torch.cat([k_pre.to(k.dtype), k]),
+                                           torch.cat([v_pre.to(v.dtype), v]), mask, scale),
+            tp_group,
         )
         _write_cache(cache, l, slice(start, start + t), k, v)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps), cache
@@ -485,8 +535,14 @@ def embed_tokens(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
 def splice_prompt(params: Params, ids: torch.Tensor, audio_mask: torch.Tensor,
                   audio_embd: torch.Tensor) -> torch.Tensor:
     """Text-token embeddings with the audio-embedding stream merged in at the
-    audio slots (the official masked_scatter merge)."""
+    audio slots (the official masked_scatter merge): ids and audio_mask [T]
+    with audio_embd [Ta, D], or the lanes of a cohort, [P, T] with
+    [P, Ta, D] (each lane's stream zero-padded to the longest)."""
     text_embd = embed_tokens(params, ids)
-    apos = torch.cumsum(audio_mask.to(torch.int64), dim=0) - 1
-    gathered = audio_embd[torch.clamp(apos, 0, audio_embd.shape[0] - 1)]
-    return torch.where(audio_mask[:, None], gathered.to(text_embd.dtype), text_embd)
+    apos = torch.clamp(torch.cumsum(audio_mask.to(torch.int64), dim=-1) - 1, 0,
+                       audio_embd.shape[-2] - 1)
+    if ids.ndim == 2:
+        gathered = audio_embd[torch.arange(ids.shape[0], device=ids.device)[:, None], apos]
+    else:
+        gathered = audio_embd[apos]
+    return torch.where(audio_mask[..., None], gathered.to(text_embd.dtype), text_embd)

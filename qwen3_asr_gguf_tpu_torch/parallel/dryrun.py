@@ -26,6 +26,7 @@ here also serve the tests (`tests/test_torch_parallel.py`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 import tempfile
@@ -155,27 +156,75 @@ def generator_tokens(params: dict, cfg: TextDecoderConfig, prompt, *, mesh=None,
     return greedy_tokens(gen, prompt)
 
 
+@contextlib.contextmanager
+def counting_collectives():
+    """{"all_reduce": n, "all_gather": n}: the calls of those two
+    `torch.distributed` functions inside the block (wrapped to count)."""
+    import torch.distributed as dist
+
+    counts = {"all_reduce": 0, "all_gather": 0}
+    inner = {name: getattr(dist, name) for name in counts}
+    for name, fn in inner.items():
+        def counted(*a, _name=name, _fn=fn, **k):
+            counts[_name] += 1
+            return _fn(*a, **k)
+        setattr(dist, name, counted)
+    try:
+        yield counts
+    finally:
+        for name, fn in inner.items():
+            setattr(dist, name, fn)
+
+
 def tp_tokens(rank: int, world: int, kind: str, cfg: TextDecoderConfig, seed: int,
               prompt_seed: int, n_audio: int = 16, t: int = 24, count: bool = False) -> dict:
     """A rank of a tensor-parallel world (model = world): greedy tokens of
     the `decoder_weights(kind, cfg, seed)` decoder on `spliced_prompt`, and
     with `count` the collectives the prefill and decode block ran
-    (`torch.distributed.all_reduce` / `all_gather` wrapped to count)."""
-    import torch.distributed as dist
-
+    (`counting_collectives`)."""
     from . import sharding as S
 
     mesh = S.make_mesh({"model": world})
     prompt = spliced_prompt(cfg, prompt_seed, n_audio=n_audio, t=t)
-    counts = {"all_reduce": 0, "all_gather": 0}
-    if count:
-        for name in counts:
-            def counted(*a, _name=name, _fn=getattr(dist, name), **k):
-                counts[_name] += 1
-                return _fn(*a, **k)
-            setattr(dist, name, counted)
-    toks = generator_tokens(decoder_weights(kind, cfg, seed), cfg, prompt, mesh=mesh)
+    with counting_collectives() if count else contextlib.nullcontext(
+            {"all_reduce": 0, "all_gather": 0}) as counts:
+        toks = generator_tokens(decoder_weights(kind, cfg, seed), cfg, prompt, mesh=mesh)
     return {"tokens": toks, "counts": counts}
+
+
+COHORT_LANES = ((16, 24), (3, 9), (30, 40))  # (audio slots, tokens) of each lane
+
+
+def cohort_logits(params: dict, cfg: TextDecoderConfig, prompt_seed: int, *,
+                  mesh=None) -> torch.Tensor:
+    """First-token logits of one cohort prefill (`generate.prefill_cohort`)
+    of `spliced_prompt`s of COHORT_LANES' lengths, on an f32 Generator's
+    prefill weights (this rank's tiles under `mesh`)."""
+    from ..models import decoder as dec
+    from ..runtime.generate import Generator, prefill_cohort, prompt_bucket
+
+    gen = Generator(params, cfg, n_ctx=128, block=8, cache_dtype=torch.float32, device="cpu",
+                    mesh=mesh)
+    prompts = [spliced_prompt(cfg, prompt_seed + i, n_audio=n, t=t)
+               for i, (n, t) in enumerate(COHORT_LANES)]
+    t_pad = prompt_bucket(max(t for _, t in COHORT_LANES))
+    cache = dec.init_cache(gen.step_cfg, t_pad, torch.float32, rows=len(prompts))
+    return prefill_cohort(gen.prefill_params, gen.step_cfg, prompts, cache, t_pad,
+                          tp_group=gen.tp_group)
+
+
+def tp_cohort(rank: int, world: int, cfg: TextDecoderConfig, seed: int,
+              prompt_seed: int) -> dict:
+    """A rank of a tensor-parallel world (model = world): `cohort_logits` of
+    the f32 decoder on its tiles, and the collectives that one cohort
+    prefill ran (`counting_collectives`)."""
+    from . import sharding as S
+
+    mesh = S.make_mesh({"model": world})
+    params = decoder_weights("f32", cfg, seed)
+    with counting_collectives() as counts:
+        logits = cohort_logits(params, cfg, prompt_seed, mesh=mesh)
+    return {"logits": logits, "counts": counts}
 
 
 def batcher_texts(model_dir: str, mesh_shape=None, kv_cache_dtype: str = "bf16"

@@ -1,18 +1,20 @@
 """Batched multi-request decoding (counterpart of
 `qwen3_asr_gguf_tpu/runtime/batched.py`).
 
-Short utterances (one chunk or less) decode together. Each prompt prefills
-into its own row of one KV cache of `round_up(n_ctx, 256)` slots, padded to its
-own prompt bucket as the engine pads it; then blocks of `forward_step_rows`
-run every row at its own position, with per-row sampling, the EOS latches
-kept on the device and one device-to-host fetch per block. Longer inputs go
-through the engine's chunk pipeline.
+Short utterances (one chunk or less) decode together. The batch prefills
+into the rows of one KV cache of `round_up(n_ctx, 256)` slots in one lanes
+pass of the decoder (`generate.prefill_cohort`: every prompt padded to the
+bucket of the longest, each row's padding keys masked) with one LM-head
+call for the first tokens, as the JAX package's `prefill_batch` does; then
+blocks of `forward_step_rows` run every row at its own position, with
+per-row sampling, the EOS latches kept on the device and one device-to-host
+fetch per block. Longer inputs go through the engine's chunk pipeline.
 
-The JAX package vmaps one program over the batch and pads every batch to a
-fixed width so that XLA compiles it once; the rows here are independent, so
-neither is needed. A batch is as wide as its requests, rounded or refused by
-the weights' kernel rows (`continuous.batch_rows`), so that no product of a
-batched step dequantizes its weight per call on the card.
+The JAX package pads every batch to a fixed width so that XLA compiles its
+programs once; eager PyTorch compiles nothing, so that is not needed. A
+batch is as wide as its requests, rounded or refused by the weights' kernel
+rows (`continuous.batch_rows`), so that no product of a batched step
+dequantizes its weight per call on the card.
 """
 
 from __future__ import annotations
@@ -27,13 +29,13 @@ from ..models import decoder as dec
 from ..ops.sampling import sample_rows
 from ..schema import TranscribeResult
 from .continuous import batch_rows
-from .generate import prompt_bucket, round_up
+from .generate import prefill_cohort, prompt_bucket, round_up
 
 SAMPLE_RATE = 16_000
 
 
 class BatchedGenerator:
-    """Row-by-row prefill and batched block decode over one row cache."""
+    """Batched prefill and block decode over one row cache."""
 
     def __init__(self, params, cfg, *, n_ctx: int, eos_ids, block: int = 32,
                  cache_dtype=torch.bfloat16, device="cuda"):
@@ -52,6 +54,24 @@ class BatchedGenerator:
         return batch_rows(b, [*self.params["layers"][0].values(), self.params["lm_head"]],
                           self.device.type == "cuda")
 
+    def prefill(self, ids_list: Sequence[np.ndarray], masks_list: Sequence[np.ndarray],
+                audio_embds: Sequence[torch.Tensor], rows: int) -> tuple[dict, torch.Tensor]:
+        """(a row cache of `rows` rows and `round_up(n_ctx, 256)` slots, with
+        the b prompts prefilled into its first b rows by `prefill_cohort` at
+        `min(prompt_bucket(longest), n_ctx)` slots, their first-token logits
+        [b, V])."""
+        lengths = [len(i) for i in ids_list]
+        if max(lengths) > self.n_ctx:
+            raise ValueError(f"prompt of {max(lengths)} tokens exceeds n_ctx={self.n_ctx}")
+        s_cache = round_up(self.n_ctx, 256)  # whole 256-slot windows at any n_ctx
+        caches = dec.init_cache(self.cfg, s_cache, self.cache_dtype, device=self.device,
+                                rows=rows)
+        lanes = {name: [c[: len(lengths)] for c in cs] for name, cs in caches.items()}
+        logits = prefill_cohort(self.params, self.cfg,
+                                list(zip(ids_list, masks_list, audio_embds)), lanes,
+                                min(prompt_bucket(max(lengths)), self.n_ctx))
+        return caches, logits
+
     def generate(
         self,
         ids_list: Sequence[np.ndarray],
@@ -67,23 +87,9 @@ class BatchedGenerator:
         b = len(ids_list)
         rows = self.rows(b)
         lengths = [len(i) for i in ids_list]
-        if max(lengths) > self.n_ctx:
-            raise ValueError(f"prompt of {max(lengths)} tokens exceeds n_ctx={self.n_ctx}")
         params, cfg, dev = self.params, self.cfg, self.device
-        s_cache = round_up(self.n_ctx, 256)  # whole 256-slot windows at any n_ctx
-        caches = dec.init_cache(cfg, s_cache, self.cache_dtype, device=dev, rows=rows)
-        last = []
-        for r, (ids, mask, embd) in enumerate(zip(ids_list, masks_list, audio_embds)):
-            t = lengths[r]
-            t_pad = min(prompt_bucket(t), self.n_ctx)
-            ids_p = np.zeros(t_pad, np.int64)
-            mask_p = np.zeros(t_pad, bool)
-            ids_p[:t], mask_p[:t] = ids, mask
-            x = dec.splice_prompt(params, torch.from_numpy(ids_p).to(dev),
-                                  torch.from_numpy(mask_p).to(dev), embd)
-            lane = {name: [c[r] for c in cs] for name, cs in caches.items()}
-            hidden, _ = dec.forward_prefill(params, cfg, x, lane, length=t)
-            last.append(dec.lm_logits(params, hidden[t - 1], cfg.lm_head_dim))
+        caches, logits = self.prefill(ids_list, masks_list, audio_embds, rows)
+        s_cache = caches["k"][0].shape[1]
 
         if seed is None:
             seed = int(np.random.randint(0, 2**31 - 1))
@@ -92,7 +98,7 @@ class BatchedGenerator:
         temps = torch.full((rows,), max(temperature, 1e-6), device=dev)
         greedy = torch.full((rows,), temperature <= 0.0, device=dev)
         first, first_done, _ = sample_rows(
-            torch.stack(last), rng, temps[:b], greedy[:b],
+            logits, rng, temps[:b], greedy[:b],
             torch.zeros(b, dtype=torch.bool, device=dev),
             torch.zeros(b, dtype=torch.int64, device=dev), self.eos_dev)
         # rows past b (a rounded-up width) idle at slot 0, latched done

@@ -9,8 +9,10 @@ row count rounds up to it, see `batch_rows`), per-row temperature and
 greedy sampling, EOS latches kept on the device, and ONE device-to-host
 fetch per block. An admission thread takes queued requests in cohorts of
 up to 16: it encodes same-shape chunks as one batch, builds each prompt,
-prefills it into a staging cache and samples its first token. Between
-blocks the worker scatters staged lanes into free rows. Long audio runs as
+and prefills the whole cohort into a staging cache in one lanes pass of the
+decoder (every prompt padded to the cohort's bucket, each lane's padding
+keys masked) with one LM-head call for the first tokens. Between blocks the
+worker scatters staged lanes into free rows. Long audio runs as
 successive chunks with memory (the previous chunk's audio embeddings and
 stable tokens lead the next chunk's prompt), each chunk its own row
 session, as the engine's chunk loop does.
@@ -27,7 +29,8 @@ token budget or its context in block n, block n is read first instead. A request
 `timestamps=True` (on an engine with an aligner) is force-aligned after its
 last chunk on a one-thread align pool, chunk by chunk in the engine's
 windows, while the worker decodes on. Not ported (see ROADMAP.md): the
-vmapped body, `prewarm` and the trace switch.
+cohort padded to a compiled width, the scatter as one program, `prewarm`
+and the trace switch.
 
 Tensor-parallel serving (an engine built with `mesh_shape`): the rows step
 runs on every rank's local tiles and on row caches split on the kv heads,
@@ -62,7 +65,7 @@ from ..ops.qtensor import kernel_rows
 from ..ops.sampling import sample_rows
 from ..parallel.collectives import broadcast_object
 from ..schema import TranscribeResult
-from .generate import HostCopy, prompt_bucket, round_up, to_device
+from .generate import HostCopy, prefill_cohort, prompt_bucket, round_up, to_device
 
 logger = logging.getLogger(__name__)
 SAMPLE_RATE = 16_000
@@ -370,10 +373,11 @@ class ContinuousBatcher:
 
     def _stage_cohort(self, reqs: list) -> Optional[_Cohort]:
         """Encode, build and prefill up to COHORT_MAX requests into a
-        staging cache, and sample their first tokens. Each lane prefills as
-        the sequential engine does (its prompt padded to its own bucket,
-        padding keys masked), so a greedy lane's tokens equal the engine's.
-        A request whose prompt overflows n_ctx fails alone."""
+        staging cache, and sample their first tokens. The cohort prefills in
+        one lanes pass (`prefill_cohort`): every prompt padded to the bucket
+        of the longest, each lane's padding keys masked, so a lane computes
+        its own prompt's numbers as the sequential engine does, in other
+        sum orders. A request whose prompt overflows n_ctx fails alone."""
         t0 = time.time()
         chunks = [self._chunk_audio(r) for r in reqs]
         kept = []
@@ -387,24 +391,16 @@ class ContinuousBatcher:
         if not kept:
             return None
         t1 = time.time()
-        gen, cfg, params = self.engine.generator, self.cfg, self.params
-        lens = [len(ids) for _, ids, _, _ in kept]
-        t_pad = min(max(prompt_bucket(t) for t in lens), self.n_ctx)
-        staged = dec.init_cache(cfg, t_pad, self.kv_dtype, device=self.device, rows=len(kept))
-        last = []
-        for lane, (req, ids, mask, embd) in enumerate(kept):
-            t = lens[lane]
-            ids_p, mask_p = gen._padded_prompt(ids, mask, min(prompt_bucket(t), self.n_ctx))
-            x = dec.splice_prompt(params, ids_p, mask_p, embd)
-            lane_cache = {name: [c[lane] for c in cs] for name, cs in staged.items()}
-            hidden, _ = dec.forward_prefill(params, cfg, x, lane_cache, length=t,
-                                            tp_group=self.tp_group)
-            last.append(dec.lm_logits(params, hidden[t - 1], cfg.lm_head_dim, self.tp_group))
         reqs = [k[0] for k in kept]
         p = len(reqs)
         dev = self.device
+        lens = [len(ids) for _, ids, _, _ in kept]
+        t_pad = min(prompt_bucket(max(lens)), self.n_ctx)
+        staged = dec.init_cache(self.cfg, t_pad, self.kv_dtype, device=dev, rows=p)
+        logits = prefill_cohort(self.params, self.cfg, [k[1:] for k in kept], staged, t_pad,
+                                tp_group=self.tp_group)
         toks, _, _ = sample_rows(
-            torch.stack(last), self._rng_admit,
+            logits, self._rng_admit,
             torch.tensor([max(r.temperature, 1e-6) for r in reqs], device=dev),
             torch.tensor([r.temperature <= 0.0 for r in reqs], device=dev),
             torch.zeros(p, dtype=torch.bool, device=dev),

@@ -11,6 +11,8 @@
   the device, and one copy of the packed `[emitted..., done, aborted]` to
   the host; `collect_block` waits for that copy alone. `decode_block` is the
   two in a row.
+- `prefill_cohort`: the batchers' admission prefill, every prompt of a
+  cohort in one lanes pass of the decoder and one LM-head call;
 - `SparseLogitsRunner`: one causal prefill with logits only at requested
   positions (the forced aligner's readout), and `argmax_at_spec`, which
   builds the aligner's prompt on the device from a block's emitted tokens.
@@ -49,6 +51,7 @@ import torch
 
 from ..models import decoder as dec
 from ..models.configs import TextDecoderConfig
+from ..ops.qtensor import kernel_rows
 from ..ops.sampling import sample
 from ..parallel.collectives import broadcast_object
 
@@ -142,6 +145,37 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def prefill_cohort(params: dict, cfg: TextDecoderConfig, prompts: list, cache: dict,
+                   t_pad: int, *, tp_group=None) -> torch.Tensor:
+    """The admission prefill of a cohort (the JAX package's `prefill_stage`
+    and `prefill_batch`): `prompts` holds (ids, audio_mask, audio_embd) per
+    lane (host arrays of at most `t_pad`, and [Ta, D] on the device). Every
+    lane is padded to `t_pad` and spliced, all of them prefill into the
+    P-row `cache` at slots [0, t_pad) in one `forward_prefill_lanes` pass,
+    and the lanes' last prompt rows take one `lm_logits` call (on the card
+    padded to the head kernel's row tiles). Returns the first-token logits
+    [P, V] (f32)."""
+    p = len(prompts)
+    device = prompts[0][2].device
+    ids_p = np.zeros((p, t_pad), np.int64)
+    mask_p = np.zeros((p, t_pad), bool)
+    for lane, (ids, mask, _) in enumerate(prompts):
+        ids_p[lane, : len(ids)] = ids
+        mask_p[lane, : len(mask)] = mask
+    lens = to_device(np.asarray([len(ids) for ids, _, _ in prompts], np.int64), device)
+    audio = torch.nn.utils.rnn.pad_sequence([embd for _, _, embd in prompts], batch_first=True)
+    x = dec.splice_prompt(params, to_device(ids_p, device), to_device(mask_p, device), audio)
+    hidden, _ = dec.forward_prefill_lanes(params, cfg, x, cache, lens, tp_group=tp_group)
+    last = hidden[torch.arange(p, device=device), lens - 1]
+    if last.is_cuda and p > 1:
+        # whole row tiles of the head's kernel (`kernel_rows`: an int4 head
+        # takes 8-row tiles), not a dequantized copy of the head per cohort
+        rows = kernel_rows(params["lm_head"], p)
+        if rows != p:
+            last = torch.cat([last, last.new_zeros(rows - p, last.shape[1])])
+    return dec.lm_logits(params, last, cfg.lm_head_dim, tp_group)[:p]
 
 
 def spec_assemble(template_ids: torch.Tensor, emitted: torch.Tensor, *, n_audio: int,

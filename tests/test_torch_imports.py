@@ -97,7 +97,8 @@ print("imported", len({modules!r}))
                 "export.__main__", "formats.__main__", "cli.perplexity", "cli.quant_accuracy",
                 "cli.diagnostics", "cli.demo_streaming", "cli.verify_weights", "cli.release",
                 "examples.run_asr", "examples.run_aligner", "parallel.sharding",
-                "parallel.train", "parallel.launch", "parallel.collectives", "parallel.dryrun"):
+                "parallel.train", "parallel.launch", "parallel.collectives", "parallel.dryrun",
+                "utils.profiling"):
         assert f"qwen3_asr_gguf_tpu_torch.{new}" in modules
 
 

@@ -237,6 +237,21 @@ def test_two_all_reduces_per_layer_and_one_gather(tmp_path):
                                "all_gather": passes}
 
 
+def test_cohort_prefill_two_all_reduces_per_layer_and_one_gather(tmp_path):
+    """One cohort prefill of three lanes (`generate.prefill_cohort`) at tp =
+    2, counted as above: two all-reduces per layer for the whole cohort and
+    one all-gather for its first-token logits, which equal the
+    single-process cohort's within atol = rtol = 1e-5 (f32; the partial
+    products are summed in another order)."""
+    cfg = D.toy_config(2).text
+    outs = _spawn(tmp_path, D.tp_cohort, 2, cfg, 1, 1)
+    single = D.cohort_logits(D.decoder_weights("f32", cfg, 1), cfg, 1)
+    assert single.shape == (len(D.COHORT_LANES), cfg.vocab_size)
+    for o in outs:
+        assert o["counts"] == {"all_reduce": 2 * cfg.num_layers, "all_gather": 1}
+        torch.testing.assert_close(o["logits"], single, atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.slow
 def test_tp_decode_at_the_full_vocab(tmp_path):
     """The 1.7B decoder's shape at 2 layers with its 151,936-token vocab
