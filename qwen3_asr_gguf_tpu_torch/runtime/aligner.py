@@ -25,6 +25,13 @@ the block's emitted tokens through the word-class table
 `align_word_cls_v1_{n_vocab}.npy`); `spec_align_collect` takes it only when
 it is exactly `align()`'s prompt, and otherwise returns None for the caller
 to run `align()`.
+
+Spans (`utils.profiling`): `align.encode` (a device span) around each
+encode, `align.decode` around each readout. A result's `performance`:
+`encoder_time` the encode's stream seconds (its CUDA events), `decoder_time`
+the readout's host time (its wait for the card included), `total_time` the
+host's time from `align()`'s start, or from `spec_align_start`'s end, to
+the result.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 from ..models import params as P
 from ..schema import AlignerConfig, ForcedAlignItem, ForcedAlignResult
 from ..text import align_text
+from ..utils import profiling
 from ..utils.languages import normalize_language_name, validate_language
 from .encoder_runner import EncoderRunner
 from .generate import SparseLogitsRunner
@@ -104,7 +112,7 @@ class QwenForcedAligner:
         self.STEP_MS = thinker.timestamp_segment_ms or STEP_MS
         self._ko_scores: dict | None = None  # built lazily on first Korean align
         self._word_tok: dict[str, list[int]] = {}  # word -> token ids memo
-        self._pre: tuple | None = None  # (key, embd, n_audio, encode s) of a pre-encoded window
+        self._pre: tuple | None = None  # (key, embd, n_audio, `align.encode` span) of a pre-encoded window
         # the speculative align: the word-class table (host and device) and
         # the dispatched alignment in flight
         self._word_cls: np.ndarray | None = None
@@ -157,10 +165,9 @@ class QwenForcedAligner:
     def pre_encode(self, audio, key) -> None:
         """Queue the encoder for an upcoming align window ahead of its text;
         `align(precomputed_key=key)` or `spec_align_start(key=key)` takes it."""
-        t0 = time.time()
-        embd = self.encoder.encode(audio)
-        self._pre = (key, embd, self.encoder.valid_tokens(int(audio.shape[-1])),
-                     time.time() - t0)
+        with profiling.span("align.encode", device=self.device) as enc:
+            embd = self.encoder.encode(audio)
+        self._pre = (key, embd, self.encoder.valid_tokens(int(audio.shape[-1])), enc)
 
     @_serialized
     def spec_align_start(self, toks_dev: torch.Tensor, key, language: str,
@@ -183,7 +190,7 @@ class QwenForcedAligner:
             toks_dev, self._word_cls_dev, audio_embd, n_audio, limit,
             (self.ID_AUDIO_START, self.ID_AUDIO_END, self.ID_TIMESTAMP), drop_last=drop_last)
         if out is not None:
-            self._spec = {"key": key, "out": out, "lang": lang, "t0": time.time()}
+            self._spec = {"key": key, "out": out, "lang": lang, "t0": time.monotonic()}
 
     @_serialized
     def spec_align_collect(self, stable_tokens: list, text: str, language: str,
@@ -204,8 +211,8 @@ class QwenForcedAligner:
         words = align_text.tokenize(text, language)
         if [self.tokenizer.token_to_bytes(t).decode("utf-8") for t in kept] != words:
             return None
-        t_dec0 = time.time()
-        out = spec["out"].fetch()
+        with profiling.span("align.decode") as readout:
+            out = spec["out"].fetch()
         if int(out[-1]) != len(kept):
             return None
         if self._pre is not None and self._pre[0] == key:
@@ -213,11 +220,11 @@ class QwenForcedAligner:
         if not words:
             return ForcedAlignResult(items=align_text.reconcile(text, []), performance={
                 "encoder_time": 0.0, "decoder_time": 0.0,
-                "total_time": time.time() - spec["t0"]})
+                "total_time": time.monotonic() - spec["t0"]})
         items = self._items(words, out[: 2 * len(kept)].tolist(), offset_sec)
         return ForcedAlignResult(items=align_text.reconcile(text, items), performance={
-            "encoder_time": 0.0, "decoder_time": time.time() - t_dec0,
-            "total_time": time.time() - spec["t0"], "speculative": 1.0})
+            "encoder_time": 0.0, "decoder_time": readout.seconds,
+            "total_time": time.monotonic() - spec["t0"], "speculative": 1.0})
 
     def _items(self, words: list[str], raw_ts, offset_sec: float) -> list[ForcedAlignItem]:
         """Word items from the raw timestamp classes (LIS-repaired, x STEP_MS)."""
@@ -311,41 +318,40 @@ class QwenForcedAligner:
         if language:
             language = normalize_language_name(language)
             validate_language(language)
-        t_start = time.time()
+        t_start = time.monotonic()
 
         # embeddings stay on the device; only their count is needed on the
         # host. The full bucket-shaped tensor is passed through (the audio
         # span mask picks the n_audio valid rows).
         if (precomputed_key is not None and self._pre is not None
                 and self._pre[0] == precomputed_key):
-            _, audio_embd, n_audio, t_enc = self._pre  # the pre_encode's own enqueue time
+            _, audio_embd, n_audio, enc = self._pre  # the pre_encode's own span
             self._pre = None
         else:
-            t_enc0 = time.time()
-            audio_embd = self.encoder.encode(audio)
+            with profiling.span("align.encode", device=self.device) as enc:
+                audio_embd = self.encoder.encode(audio)
             n_audio = self.encoder.valid_tokens(int(audio.shape[-1]))
-            t_enc = time.time() - t_enc0  # enqueue time: the device runs on under the prompt build
 
         ko_scores = self._korean_scores() if (language or "").lower() == "korean" else None
         words = align_text.tokenize(text, language, ko_scores=ko_scores)
         if not words:
             return ForcedAlignResult(items=align_text.reconcile(text, []), performance={
-                "encoder_time": t_enc, "decoder_time": 0.0, "total_time": time.time() - t_start,
+                "encoder_time": enc.device_seconds(enc.seconds), "decoder_time": 0.0,
+                "total_time": time.monotonic() - t_start,
             })
 
         ids, audio_mask, ts_positions = self._prompt(words, n_audio)
 
-        t_dec0 = time.time()
         limit = min(TIMESTAMP_CLASSES, self.dec_cfg.lm_head_dim)
-        raw_ts = self.runner.argmax_at(ids, audio_mask, audio_embd, ts_positions, limit)
-        t_dec = time.time() - t_dec0
+        with profiling.span("align.decode") as readout:
+            raw_ts = self.runner.argmax_at(ids, audio_mask, audio_embd, ts_positions, limit)
 
         final_items = align_text.reconcile(text, self._items(words, raw_ts, offset_sec))
         return ForcedAlignResult(
             items=final_items,
             performance={
-                "encoder_time": t_enc,
-                "decoder_time": t_dec,
-                "total_time": time.time() - t_start,
+                "encoder_time": enc.device_seconds(enc.seconds),  # the readout waited
+                "decoder_time": readout.seconds,
+                "total_time": time.monotonic() - t_start,
             },
         )

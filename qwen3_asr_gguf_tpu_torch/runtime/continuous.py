@@ -65,6 +65,7 @@ from ..ops.qtensor import kernel_rows
 from ..ops.sampling import sample_rows
 from ..parallel.collectives import broadcast_object
 from ..schema import TranscribeResult
+from ..utils import profiling
 from .generate import HostCopy, prefill_cohort, prompt_bucket, round_up, to_device
 
 logger = logging.getLogger(__name__)
@@ -95,7 +96,8 @@ class _Request:
     done_evt: threading.Event = field(default_factory=threading.Event)
     result: Optional[TranscribeResult] = None
     error: Optional[Exception] = None
-    submitted_at: float = field(default_factory=time.time)
+    submitted_ns: int = field(default_factory=profiling.now_ns)  # the records' clock
+    trace_id: int = field(default_factory=profiling.new_request)  # its spans' request id
     # long-audio chunk state: memory carries the previous chunk's encoder
     # feature and stable tokens into the next chunk's prompt
     chunk_idx: int = 0
@@ -208,12 +210,15 @@ class ContinuousBatcher:
         self._stop = False
         self.n_admitted = 0
         self.n_completed = 0
-        self._t_admit = 0.0  # admission thread: host + queueing time
-        self._t_admit_enc = 0.0  # ... encode and prompt share
-        self._t_admit_prefill = 0.0  # ... staging prefill share
-        self._t_scatter = 0.0  # worker: scattering staged cohorts
-        self._t_dispatch = 0.0  # worker: queueing decode blocks
-        self._t_fetch = 0.0  # worker: waiting on a block's result
+        # spans for `stats`: serve.admit (admission thread: host + queueing
+        # time), its serve.admit.encode (encode and prompt) and
+        # serve.admit.prefill (staging prefill) shares; on the worker
+        # serve.scatter (staged cohorts into rows), serve.dispatch (queueing
+        # decode blocks) and serve.fetch (waiting on a block's result). Per
+        # request: serve.queue (submission to its first admission) and
+        # serve.request (submission to its text)
+        self._trace = profiling.Tracer()
+        self._trace_id = profiling.new_request()  # the decode worker's spans
         self._n_blocks = 0
         self._n_cohorts = 0
         self._align_pool: Optional[ThreadPoolExecutor] = None  # at the first timestamped request
@@ -298,12 +303,10 @@ class ContinuousBatcher:
             "completed": self.n_completed,
             "active_rows": sum(1 for r in self.rows if r.req is not None),
             "queued": len(self._pending),
-            "t_admit": round(self._t_admit, 3),
-            "t_admit_enc": round(self._t_admit_enc, 3),
-            "t_admit_prefill": round(self._t_admit_prefill, 3),
-            "t_scatter": round(self._t_scatter, 3),
-            "t_dispatch": round(self._t_dispatch, 3),
-            "t_fetch": round(self._t_fetch, 3),
+            **{key: round(self._trace.totals.get(name, 0.0), 3) for key, name in (
+                ("t_admit", "serve.admit"), ("t_admit_enc", "serve.admit.encode"),
+                ("t_admit_prefill", "serve.admit.prefill"), ("t_scatter", "serve.scatter"),
+                ("t_dispatch", "serve.dispatch"), ("t_fetch", "serve.fetch"))},
             "n_blocks": self._n_blocks,
             "n_cohorts": self._n_cohorts,
         }
@@ -378,19 +381,21 @@ class ContinuousBatcher:
         of the longest, each lane's padding keys masked, so a lane computes
         its own prompt's numbers as the sequential engine does, in other
         sum orders. A request whose prompt overflows n_ctx fails alone."""
-        t0 = time.time()
-        chunks = [self._chunk_audio(r) for r in reqs]
-        kept = []
-        for req, chunk, cur in zip(reqs, chunks, self._encode(chunks)):
-            try:
-                kept.append((req, *self._build_admission(req, chunk, cur)))
-            except ValueError as e:
-                req.error = e
-                req.done_evt.set()
-        self._t_admit_enc += time.time() - t0
+        with self._trace.span("serve.admit.encode", request=reqs[0].trace_id):
+            chunks = [self._chunk_audio(r) for r in reqs]
+            kept = []
+            for req, chunk, cur in zip(reqs, chunks, self._encode(chunks)):
+                try:
+                    kept.append((req, *self._build_admission(req, chunk, cur)))
+                except ValueError as e:
+                    req.error = e
+                    req.done_evt.set()
         if not kept:
             return None
-        t1 = time.time()
+        with self._trace.span("serve.admit.prefill", request=reqs[0].trace_id):
+            return self._stage_prefill(kept)
+
+    def _stage_prefill(self, kept: list) -> _Cohort:
         reqs = [k[0] for k in kept]
         p = len(reqs)
         dev = self.device
@@ -406,7 +411,6 @@ class ContinuousBatcher:
             torch.zeros(p, dtype=torch.bool, device=dev),
             torch.zeros(p, dtype=torch.int64, device=dev), self.eos_dev,
         )
-        self._t_admit_prefill += time.time() - t1
         return _Cohort(staged=staged, toks=toks, reqs=reqs, lens=lens, t_pad=t_pad)
 
     def _admit_loop(self) -> None:
@@ -420,6 +424,7 @@ class ContinuousBatcher:
                 self._admit_work.wait(timeout=0.5)
                 self._admit_work.clear()
                 continue
+            self._queued(reqs)
             with self._lock:
                 self._n_staging += 1
             self._stage_slots.acquire()
@@ -431,16 +436,15 @@ class ContinuousBatcher:
                         req.error = err
                         req.done_evt.set()
                 return
-            t0 = time.time()
             cohort = None
-            try:
-                cohort = self._stage_cohort(reqs)
-            except Exception as e:
-                for req in reqs:
-                    if not req.done_evt.is_set():
-                        req.error = e
-                        req.done_evt.set()
-            self._t_admit += time.time() - t0
+            with self._trace.span("serve.admit", request=reqs[0].trace_id):
+                try:
+                    cohort = self._stage_cohort(reqs)
+                except Exception as e:
+                    for req in reqs:
+                        if not req.done_evt.is_set():
+                            req.error = e
+                            req.done_evt.set()
             self._n_cohorts += 1
             with self._lock:
                 self._n_staging -= 1
@@ -450,6 +454,12 @@ class ContinuousBatcher:
                 self._stage_slots.release()
             else:
                 self._work.set()
+
+    def _queued(self, reqs: list) -> None:
+        """A `serve.queue` span for each request taken for its first chunk."""
+        for req in reqs:
+            if req.chunk_idx == 0:
+                self._trace.add("serve.queue", req.submitted_ns, request=req.trace_id)
 
     # -- decode worker --------------------------------------------------------
 
@@ -469,28 +479,30 @@ class ContinuousBatcher:
                 finished = cohort.next_lane >= len(cohort.reqs)
                 if finished:
                     self._ready.pop(0)
-            t0 = time.time()
-            rows_t = to_device(np.asarray(rows, np.int64), self.device)
-            lanes_t = to_device(np.asarray(lanes, np.int64), self.device)
-            for name, live in self.caches.items():
-                for c, st in zip(live, cohort.staged[name]):
-                    c[rows_t, : cohort.t_pad] = st[lanes_t]
-            self.toks[rows_t] = cohort.toks[lanes_t]
-            self.dones_dev[rows_t] = False
-            for lane, row_idx in zip(lanes, rows):
-                req = cohort.reqs[lane]
-                row = self.rows[row_idx]
-                row.req = req
-                row.tokens = []
-                row.pos = cohort.lens[lane]
-                self.poss[row_idx] = cohort.lens[lane]
-                self.temps[row_idx] = max(req.temperature, 1e-6)
-                self.greedy[row_idx] = req.temperature <= 0.0
-                self.dones[row_idx] = False
-                self.n_admitted += 1
-            self._t_scatter += time.time() - t0
+            with self._trace.span("serve.scatter", request=self._trace_id):
+                self._scatter(cohort, lanes, rows)
             if finished:
                 self._stage_slots.release()
+
+    def _scatter(self, cohort: _Cohort, lanes: list, rows: list) -> None:
+        rows_t = to_device(np.asarray(rows, np.int64), self.device)
+        lanes_t = to_device(np.asarray(lanes, np.int64), self.device)
+        for name, live in self.caches.items():
+            for c, st in zip(live, cohort.staged[name]):
+                c[rows_t, : cohort.t_pad] = st[lanes_t]
+        self.toks[rows_t] = cohort.toks[lanes_t]
+        self.dones_dev[rows_t] = False
+        for lane, row_idx in zip(lanes, rows):
+            req = cohort.reqs[lane]
+            row = self.rows[row_idx]
+            row.req = req
+            row.tokens = []
+            row.pos = cohort.lens[lane]
+            self.poss[row_idx] = cohort.lens[lane]
+            self.temps[row_idx] = max(req.temperature, 1e-6)
+            self.greedy[row_idx] = req.temperature <= 0.0
+            self.dones[row_idx] = False
+            self.n_admitted += 1
 
     def _decode_block(self, poss: np.ndarray, temps: np.ndarray, greedy: np.ndarray,
                       host_dones: np.ndarray, win: int) -> torch.Tensor:
@@ -568,8 +580,9 @@ class ContinuousBatcher:
         req.chunk_texts.append(text_final)
         self.n_completed += 1
         text = "".join(req.chunk_texts)
+        latency = self._trace.add("serve.request", req.submitted_ns, request=req.trace_id)
         perf = {"batched": "continuous", "n_generate": len(row.tokens), "n_chunks": req.n_chunks,
-                "latency_s": time.time() - req.submitted_at}
+                "latency_s": latency}
         if req.timestamps:
             # the aligner only prefills; it runs on the align pool beside the
             # decode worker, and done_evt fires when the items land
@@ -619,13 +632,12 @@ class ContinuousBatcher:
         row retired since then has a new generation and its lane is skipped
         (the device only latched it; a re-admission's scatter is queued after
         the block, and every step writes its KV slot before reading it)."""
-        t0 = time.time()
         try:
-            arr = packed.fetch()
+            with self._trace.span("serve.fetch", request=self._trace_id):
+                arr = packed.fetch()
         except Exception as e:  # a failed launch: nothing else can run
             self._fail_active(e)
             return
-        self._t_fetch += time.time() - t0
         for i, gen in snapshot:
             row = self.rows[i]
             if self.row_gen[i] != gen or row.req is None:
@@ -675,8 +687,9 @@ class ContinuousBatcher:
             # are free, let staging land (capped at FILL_GATE_S); a lone
             # request with nothing queued behind it never waits here
             if inflight is None and len(active) < self.max_batch:
-                t_gate = time.time()
-                while len(active) < self.max_batch and time.time() - t_gate < self.FILL_GATE_S:
+                t_gate = time.monotonic()
+                while (len(active) < self.max_batch
+                       and time.monotonic() - t_gate < self.FILL_GATE_S):
                     with self._lock:
                         inflow = bool(self._pending or self._ready) or self._n_staging > 0
                     if not inflow:
@@ -714,14 +727,13 @@ class ContinuousBatcher:
         # at slot 0, a valid slot that the next admission overwrites
         poss = np.zeros(self.b, np.int64)
         poss[active] = self.poss[active]
-        t0 = time.time()
         try:
-            packed = HostCopy(self._decode_block(poss, self.temps.copy(), self.greedy.copy(),
-                                                 self.dones.copy(), win))
+            with self._trace.span("serve.dispatch", request=self._trace_id):
+                packed = HostCopy(self._decode_block(poss, self.temps.copy(),
+                                                     self.greedy.copy(), self.dones.copy(), win))
         except Exception as e:  # a failed launch: nothing else can run
             self._fail_active(e)
             return None
-        self._t_dispatch += time.time() - t0
         self._n_blocks += 1
         for i in active:
             self.poss[i] += self.block
@@ -740,7 +752,7 @@ class ContinuousBatcher:
         the pending requests to admit now), once there is work or after
         HEARTBEAT_S (an empty plan keeps the other ranks' waits short);
         None once closed."""
-        t0 = time.time()
+        t0 = time.monotonic()
         while True:
             with self._lock:
                 if self._stop:
@@ -750,7 +762,7 @@ class ContinuousBatcher:
                 free = sum(r.req is None for r in self.rows)
                 admit = [r.rid for r in self._pending[:min(free, self.cohort_max)]]
             busy = any(r.req is not None for r in self.rows)
-            if new or admit or busy or time.time() - t0 > self.HEARTBEAT_S:
+            if new or admit or busy or time.monotonic() - t0 > self.HEARTBEAT_S:
                 return [r.plan_fields() for r in new], admit
             self._work.wait(timeout=0.05)
             self._work.clear()
@@ -772,6 +784,7 @@ class ContinuousBatcher:
                     by_id = {r.rid: r for r in self._pending}
                     self._pending = [r for r in self._pending if r.rid not in ids]
                 reqs = [by_id[i] for i in admit]
+                self._queued(reqs)
                 try:
                     cohort = self._stage_cohort(reqs)
                 except Exception as e:

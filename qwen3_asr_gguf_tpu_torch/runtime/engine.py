@@ -57,7 +57,6 @@ import logging
 import os
 import re
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from codecs import getincrementaldecoder
 from collections import deque
@@ -74,6 +73,7 @@ from ..schema import (
     ForcedAlignResult,
     TranscribeResult,
 )
+from ..utils import profiling
 from ..utils.languages import normalize_language_name, validate_language
 from .encoder_runner import EncoderRunner
 from .generate import Generator
@@ -157,13 +157,19 @@ class QwenASREngine:
     def __init__(self, config: ASREngineConfig, device="cuda", *,
                  fused_mlp: bool | None = None):
         """`fused_mlp` goes to the Generator: None turns the fused int8 MLP
-        kernel on for an "int8" engine on the card and off on the CPU."""
+        kernel on for an "int8" engine on the card and off on the CPU.
+        `init_seconds` is the duration of the `engine.init` span (its
+        children `engine.init.encoder`, `.decoder`, `.generator`)."""
         if config.precision not in ("int4", "int8", "q4_k", "bf16", "f16", "f32"):
             raise ValueError(f"unknown precision {config.precision!r}")
         kv_name = "f32" if config.precision == "f32" else config.kv_cache_dtype
         if kv_name not in _KV_DTYPES:
             raise NotImplementedError(f"kv_cache_dtype {kv_name!r} is not ported yet")
-        t_init = time.time()
+        with profiling.span("engine.init") as init:
+            self._init(config, kv_name, device, fused_mlp)
+        self.init_seconds = init.seconds
+
+    def _init(self, config: ASREngineConfig, kv_name: str, device, fused_mlp) -> None:
         self.config = config
         self.verbose = config.verbose
         self.device = torch.device(device)
@@ -176,20 +182,21 @@ class QwenASREngine:
         self.thinker = thinker
 
         enc_path = os.path.join(model_dir, config.encoder_fn)
-        if config.precision in ("int4", "q4_k", "int8"):
-            enc_cfg, enc_params = P.load_encoder_quantized(
-                enc_path, kind="int8" if config.precision == "int8" else "int4",
-                device=self.device)
-        elif config.precision in ("bf16", "f16"):
-            enc_cfg, enc_params = P.load_encoder_half(enc_path, device=self.device)
-        else:
-            enc_cfg, enc_params = P.load_encoder_safetensors(enc_path, device=self.device)
-        mel_path = os.path.join(model_dir, "mel_filters.npy")
-        self.encoder = EncoderRunner(
-            enc_params, enc_cfg,
-            mel_filters=np.load(mel_path) if os.path.exists(mel_path) else None,
-            device=self.device,
-        )
+        with profiling.span("engine.init.encoder"):
+            if config.precision in ("int4", "q4_k", "int8"):
+                enc_cfg, enc_params = P.load_encoder_quantized(
+                    enc_path, kind="int8" if config.precision == "int8" else "int4",
+                    device=self.device)
+            elif config.precision in ("bf16", "f16"):
+                enc_cfg, enc_params = P.load_encoder_half(enc_path, device=self.device)
+            else:
+                enc_cfg, enc_params = P.load_encoder_safetensors(enc_path, device=self.device)
+            mel_path = os.path.join(model_dir, "mel_filters.npy")
+            self.encoder = EncoderRunner(
+                enc_params, enc_cfg,
+                mel_filters=np.load(mel_path) if os.path.exists(mel_path) else None,
+                device=self.device,
+            )
 
         self.mesh = None
         dec_precision = {"f16": "bf16"}.get(config.precision, config.precision)
@@ -202,27 +209,30 @@ class QwenASREngine:
                 logger.info("mesh inference: decoder precision int4 -> int8 "
                             "(geometry not TP-divisible)")
                 dec_precision = "int8"
-        dec_cfg, dec_params, tokenizer = P.load_decoder_gguf(
-            os.path.join(model_dir, config.llm_fn), precision=dec_precision, device=self.device)
+        with profiling.span("engine.init.decoder"):
+            dec_cfg, dec_params, tokenizer = P.load_decoder_gguf(
+                os.path.join(model_dir, config.llm_fn), precision=dec_precision,
+                device=self.device)
+            if self.mesh is None:
+                # one qkv / gateup stream per layer; a row split of the fused
+                # weights would cross the q / k / v sections under a mesh
+                dec_params = P.fuse_layer_weights(dec_params)
         self.dec_cfg = dec_cfg
         self.model = tokenizer  # the reference LlamaModel text API
-        if self.mesh is None:
-            # one qkv / gateup stream per layer; a row split of the fused
-            # weights would cross the q / k / v sections under a mesh
-            dec_params = P.fuse_layer_weights(dec_params)
-        self.generator = Generator(
-            dec_params, dec_cfg,
-            n_ctx=config.n_ctx,
-            eos_ids=thinker.eos_token_ids,
-            block=config.decode_block,
-            cache_dtype=_KV_DTYPES[kv_name],
-            # only int4 prefills on a dense copy made once; the other
-            # precisions go through `matmul` per call, as in the JAX package
-            dequant_prefill=dec_precision == "int4",
-            fused_mlp=fused_mlp,
-            device=self.device,
-            mesh=self.mesh,
-        )
+        with profiling.span("engine.init.generator"):
+            self.generator = Generator(
+                dec_params, dec_cfg,
+                n_ctx=config.n_ctx,
+                eos_ids=thinker.eos_token_ids,
+                block=config.decode_block,
+                cache_dtype=_KV_DTYPES[kv_name],
+                # only int4 prefills on a dense copy made once; the other
+                # precisions go through `matmul` per call, as in the JAX package
+                dequant_prefill=dec_precision == "int4",
+                fused_mlp=fused_mlp,
+                device=self.device,
+                mesh=self.mesh,
+            )
         self.ID_IM_START = thinker.im_start_token_id
         self.ID_IM_END = thinker.im_end_token_id
         self.ID_AUDIO_START = thinker.audio_start_token_id
@@ -239,7 +249,6 @@ class QwenASREngine:
                 target=self._bring_up_aligner, args=(config.align_config,), daemon=True,
                 name="aligner-bring-up")
             self._aligner_thread.start()
-        self.init_seconds = time.time() - t_init
 
     def _bring_up_aligner(self, align_config) -> None:
         try:
@@ -314,15 +323,16 @@ class QwenASREngine:
                           language: Optional[str], detect_language: bool = False
                           ) -> tuple[np.ndarray, np.ndarray]:
         """Full prompt as (token_ids, audio_mask)."""
-        prefix_tokens, suffix_tokens = self._prompt_parts(
-            prefix_text, context, language, detect_language)
-        n_pre = len(prefix_tokens)
-        total = n_pre + n_audio + len(suffix_tokens)
-        ids = np.zeros(total, dtype=np.int32)
-        ids[:n_pre] = prefix_tokens
-        ids[n_pre + n_audio:] = suffix_tokens
-        audio_mask = np.zeros(total, dtype=bool)
-        audio_mask[n_pre: n_pre + n_audio] = True
+        with profiling.span("engine.prompt"):
+            prefix_tokens, suffix_tokens = self._prompt_parts(
+                prefix_text, context, language, detect_language)
+            n_pre = len(prefix_tokens)
+            total = n_pre + n_audio + len(suffix_tokens)
+            ids = np.zeros(total, dtype=np.int32)
+            ids[:n_pre] = prefix_tokens
+            ids[n_pre + n_audio:] = suffix_tokens
+            audio_mask = np.zeros(total, dtype=bool)
+            audio_mask[n_pre: n_pre + n_audio] = True
         return ids, audio_mask
 
     @staticmethod
@@ -344,50 +354,61 @@ class QwenASREngine:
                 ) -> tuple[DecodeResult, dict]:
         """One chunk generation with rollback and the circuit breaker.
         Returns (result, KV cache). `retry_cache`: the cache of a failed
-        attempt over the same prompt, re-sampled from its last position."""
+        attempt over the same prompt, re-sampled from its last position.
+        `t_prefill` is the prefill's stream time (`decode.prefill`'s CUDA
+        events; its host time where no block wait followed it, the context
+        being full; 0 for a retry, which prefills nothing), `t_generate` the
+        host's time from
+        the first block's queueing to the last one's tokens taken
+        (`engine.generate`)."""
         result = DecodeResult()
         result.n_prefill = int(ids.shape[0])
         gen = self.generator
-        t0 = time.time()
         drop_first_emitted = False
+        prefill = None
         if retry_cache is not None:
             base = reuse[1] if reuse is not None else 0
             state = gen.restart_at(retry_cache, pos=base + int(ids.shape[0]) - 1,
                                    last_token=int(ids[-1]))
             drop_first_emitted = True  # the block emits the re-fed prompt token
-        elif reuse is None:
-            state = gen.start_spliced(ids, audio_mask, audio_embd, temperature=temperature)
         else:
-            cache, start = reuse
-            state = gen.start_spliced_at(ids, audio_mask, audio_embd, start=start, cache=cache,
-                                         temperature=temperature)
-        result.t_prefill = time.time() - t0  # queued, not waited for
+            with profiling.span("decode.prefill", device=self.device) as prefill:
+                if reuse is None:
+                    state = gen.start_spliced(ids, audio_mask, audio_embd,
+                                              temperature=temperature)
+                else:
+                    cache, start = reuse
+                    state = gen.start_spliced_at(ids, audio_mask, audio_embd, start=start,
+                                                 cache=cache, temperature=temperature)
 
-        t1 = time.time()
-        max_new = max_new_tokens if max_new_tokens is not None else self.config.max_new_tokens
-        stream = _StableStream(self, rollback_num, max_new)
-        # 1-deep block pipeline (JAX engine.py:433-472): block n+1 is queued
-        # before block n is read; a block queued after the latch holds it
-        st, packed = gen.decode_block_dispatch(state, temperature)
-        latest = st
-        while True:
-            spec = None
-            if packed is not None and stream.n_gen + gen.block < max_new:
-                spec = gen.decode_block_dispatch(st, temperature)
-                latest = spec[0]
-            toks, finished, rep_aborted = gen.collect_block(packed)
-            if drop_first_emitted and toks:
-                toks = toks[1:]
-                drop_first_emitted = False
-            if stream.take(toks) or rep_aborted:
-                result.is_aborted = True
-            if finished or stream.n_gen >= max_new or result.is_aborted:
-                break
-            if spec is None:
-                spec = gen.decode_block_dispatch(st, temperature)
-                latest = spec[0]
-            st, packed = spec
-        result.t_generate = time.time() - t1
+        with profiling.span("engine.generate") as generate:
+            max_new = (max_new_tokens if max_new_tokens is not None
+                       else self.config.max_new_tokens)
+            stream = _StableStream(self, rollback_num, max_new)
+            # 1-deep block pipeline (JAX engine.py:433-472): block n+1 is queued
+            # before block n is read; a block queued after the latch holds it
+            st, packed = gen.decode_block_dispatch(state, temperature)
+            latest = st
+            while True:
+                spec = None
+                if packed is not None and stream.n_gen + gen.block < max_new:
+                    spec = gen.decode_block_dispatch(st, temperature)
+                    latest = spec[0]
+                toks, finished, rep_aborted = gen.collect_block(packed)
+                if drop_first_emitted and toks:
+                    toks = toks[1:]
+                    drop_first_emitted = False
+                if stream.take(toks) or rep_aborted:
+                    result.is_aborted = True
+                if finished or stream.n_gen >= max_new or result.is_aborted:
+                    break
+                if spec is None:
+                    spec = gen.decode_block_dispatch(st, temperature)
+                    latest = spec[0]
+                st, packed = spec
+        result.t_generate = generate.seconds
+        result.t_prefill = (prefill.device_seconds(prefill.seconds)
+                            if prefill is not None else 0.0)
         stream.close(result, is_last_chunk)
         return result, latest.cache
 
@@ -397,19 +418,19 @@ class QwenASREngine:
         `_collect_chunk`, or None when the context is full (the caller then
         takes `_safe_decode`)."""
         gen = self.generator
-        t0 = time.time()
-        if reuse is None:
-            st = gen.start_spliced(ids, audio_mask, audio_embd, temperature=temperature)
-        else:
-            cache, start = reuse
-            st = gen.start_spliced_at(ids, audio_mask, audio_embd, start=start, cache=cache,
-                                      temperature=temperature)
-        t1 = time.time()
-        st2, packed = gen.decode_block_dispatch(st, temperature)
+        with profiling.span("decode.prefill", device=self.device) as prefill:
+            if reuse is None:
+                st = gen.start_spliced(ids, audio_mask, audio_embd, temperature=temperature)
+            else:
+                cache, start = reuse
+                st = gen.start_spliced_at(ids, audio_mask, audio_embd, start=start, cache=cache,
+                                          temperature=temperature)
+        with profiling.span("engine.generate") as block:
+            st2, packed = gen.decode_block_dispatch(st, temperature)
         if packed is None:
             return None
         return {"state": st2, "packed": packed, "n_prefill": int(ids.shape[0]),
-                "t_prefill": t1 - t0, "t_block": time.time() - t1}
+                "prefill": prefill, "block": block}
 
     def _dispatch_chunk_spec(self, template_ids, emitted, audio_embd, *, n_audio: int,
                              start: int, cache, temperature: float, rollback: int,
@@ -421,32 +442,33 @@ class QwenASREngine:
         abort (the cache prefix [0:start) stays valid: a decode reads only
         slots that the redo writes first)."""
         gen = self.generator
-        t0 = time.time()
-        st = gen.start_spliced_at_spec(template_ids, emitted, audio_embd, n_audio=n_audio,
-                                       start=start, cache=cache, rollback=rollback,
-                                       max_keep=max_keep, temperature=temperature)
-        t1 = time.time()
+        with profiling.span("decode.prefill", device=self.device) as prefill:
+            st = gen.start_spliced_at_spec(template_ids, emitted, audio_embd, n_audio=n_audio,
+                                           start=start, cache=cache, rollback=rollback,
+                                           max_keep=max_keep, temperature=temperature)
         bound = start + n_audio + len(template_ids) + max_keep
-        st2, packed = gen.decode_block_dispatch(st, temperature, pos_bound=bound)
+        with profiling.span("engine.generate") as block:
+            st2, packed = gen.decode_block_dispatch(st, temperature, pos_bound=bound)
         if packed is None:
             return None
         return {"state": st2, "packed": packed,
                 "n_prefill": n_audio + len(template_ids),  # + n_keep at collect
-                "t_prefill": t1 - t0, "t_block": time.time() - t1}
+                "prefill": prefill, "block": block}
 
     def _collect_chunk(self, pend: dict, rollback_num: int, is_last_chunk: bool) -> DecodeResult:
         """Read a dispatched chunk's block and run `_decode`'s host-side token
         processing on it (JAX engine.py:546-596). Its times are those of the
-        synchronous flow: the prefill's queueing, and the block's queueing
-        plus the wait for its result."""
-        t0 = time.time()
-        toks, _, rep_aborted = self.generator.collect_block(pend["packed"])
-        result = DecodeResult()
-        result.n_prefill = pend["n_prefill"]
-        result.t_prefill = pend["t_prefill"]
-        stream = _StableStream(self, rollback_num, self.config.max_new_tokens)
-        result.is_aborted = stream.take(toks) or rep_aborted
-        result.t_generate = pend["t_block"] + time.time() - t0
+        synchronous flow: the prefill's stream time, and the host's
+        `engine.generate` spans, the block's queueing and here the wait for
+        its result and the tokens taken."""
+        with profiling.span("engine.generate") as collect:
+            toks, _, rep_aborted = self.generator.collect_block(pend["packed"])
+            result = DecodeResult()
+            result.n_prefill = pend["n_prefill"]
+            stream = _StableStream(self, rollback_num, self.config.max_new_tokens)
+            result.is_aborted = stream.take(toks) or rep_aborted
+        result.t_prefill = pend["prefill"].device_seconds(pend["prefill"].seconds)
+        result.t_generate = pend["block"].seconds + collect.seconds
         stream.close(result, is_last_chunk)
         return result
 
@@ -476,6 +498,8 @@ class QwenASREngine:
     # -- stats -------------------------------------------------------------
 
     def _print_stats(self, stats: dict, audio_duration: float, t_total: float) -> None:
+        """The call's `performance` and its `engine.asr` span so far
+        (`t_total`): prefill and encode in stream seconds, the rest host."""
         rtf = t_total / audio_duration if audio_duration > 0 else 0.0
         pre = stats["prefill_tokens"] / stats["prefill_time"] if stats["prefill_time"] > 0 else 0
         gen = stats["decode_tokens"] / stats["decode_time"] if stats["decode_time"] > 0 else 0
@@ -483,7 +507,8 @@ class QwenASREngine:
         print(f"  RTF            : {rtf:.3f}")
         print(f"  audio duration : {audio_duration:.2f} s")
         print(f"  total time     : {t_total:.2f} s")
-        print(f"  encode wait    : {stats['wait_time']:.2f} s")
+        print(f"  encode         : {stats['encode_time']:.3f} s on the stream, "
+              f"{stats['wait_time']:.3f} s queueing")
         print(f"  align total    : {stats['align_enc_time'] + stats['align_dec_time']:.2f} s")
         print(f"  LLM prefill    : {stats['prefill_time']:.3f} s ({stats['prefill_tokens']} tok, {pre:.1f} tok/s)")
         print(f"  LLM generate   : {stats['decode_time']:.3f} s ({stats['decode_tokens']} tok, {gen:.1f} tok/s)")
@@ -507,9 +532,24 @@ class QwenASREngine:
             chunk_size_sec: float = 40.0, memory_chunks: int = 1, temperature: float = 0.4,
             rollback_num: int = 5, detect_language: bool = False) -> TranscribeResult:
         """Chunked transcription in the 3-stage pipeline (JAX engine.py:
-        671-1269). `detect_language=True` with no language parses chunk 0's
-        ``language X<asr_text>body`` output and forces the detected language
-        on later chunks."""
+        671-1269), one `engine.asr` span. `detect_language=True` with no
+        language parses chunk 0's ``language X<asr_text>body`` output and
+        forces the detected language on later chunks.
+
+        `performance`: `decode_time` (the chunks' `t_generate`, host),
+        `decode_tokens`, `prefill_tokens`; `prefill_time`, `encode_time` and
+        `align_enc_time` in stream seconds (the CUDA events of
+        `decode.prefill`, `engine.encode`, `align.encode`: the time the
+        stream took to pass the work, launches included, so close to the
+        host's launch time while the card outruns the host); `wait_time` the
+        host's time queueing the encodes; `align_dec_time` the aligner's
+        readouts."""
+        with profiling.span("engine.asr") as call:
+            return self._asr(call, audio, context, language, chunk_size_sec, memory_chunks,
+                             temperature, rollback_num, detect_language)
+
+    def _asr(self, call, audio, context, language, chunk_size_sec, memory_chunks,
+             temperature, rollback_num, detect_language) -> TranscribeResult:
         if language:
             language = normalize_language_name(language)
             validate_language(language)
@@ -537,7 +577,6 @@ class QwenASREngine:
             "wait_time": 0.0, "encode_time": 0.0,
             "align_enc_time": 0.0, "align_dec_time": 0.0,
         }
-        t_main = time.time()
 
         # every chunk zero-padded to the full chunk, uploaded once
         chunks_dev = None
@@ -549,13 +588,14 @@ class QwenASREngine:
 
         a_full = self.encoder.valid_tokens(samples_per_chunk)
         enc_out: dict[int, torch.Tensor] = {}
+        encodes: list = []  # the `engine.encode` spans, read after the last block's wait
 
         def send_enc(idx: int) -> None:
             """Queue chunk idx's encode (its valid rows)."""
             if 0 <= idx < num_chunks and idx not in enc_out:
-                t0 = time.time()
-                enc_out[idx] = self.encoder.encode(chunks_dev[idx])[:a_full]
-                stats["encode_time"] += time.time() - t0  # queueing time
+                with profiling.span("engine.encode", device=self.device) as enc:
+                    enc_out[idx] = self.encoder.encode(chunks_dev[idx])[:a_full]
+                encodes.append(enc)
 
         def wait_enc(idx: int) -> torch.Tensor:
             """Chunk idx's embeddings on the device; nothing waits (the device
@@ -632,7 +672,7 @@ class QwenASREngine:
 
         def on_worker(fn, *args):
             def task():
-                with self._on_device():
+                with self._on_device(), profiling.span("engine.align", request=call.request):
                     fn(*args)
             align_futs.append(align_pool.submit(task))
 
@@ -716,10 +756,8 @@ class QwenASREngine:
         if num_chunks:
             send_enc(0)
         for i in range(num_chunks):
-            t_w = time.time()
             send_enc(i + 1)  # queue the next encode before this chunk's decode
             audio_feature = wait_enc(i)
-            stats["wait_time"] += time.time() - t_w
 
             if i >= 1:
                 submit_align(i - 1)
@@ -741,25 +779,28 @@ class QwenASREngine:
                     self.config.kv_prefix_reuse and memory_chunks == 1
                     and len(memory) == 1 and kv_cache is not None
                 )
-                if use_reuse:
-                    carried = [t for m in memory for t in m[2]]
-                    kept = trim_prefix_tokens(carried, start + n_valid_cur + len(suffix_head))
-                    suffix_tokens = suffix_head + kept
-                    if i >= 2:
-                        # only the header KV [0, n_pre) is carried; the memory
-                        # audio re-prefills at its new positions with this chunk
-                        ids, audio_mask = self._suffix_prompt_ids(a_full + n_valid_cur,
-                                                                  suffix_tokens)
-                        embd_in = torch.cat([memory[-1][0], audio_feature])
-                        reuse = (kv_cache, n_pre)
+                with profiling.span("engine.prompt"):
+                    if use_reuse:
+                        carried = [t for m in memory for t in m[2]]
+                        kept = trim_prefix_tokens(carried,
+                                                  start + n_valid_cur + len(suffix_head))
+                        suffix_tokens = suffix_head + kept
+                        if i >= 2:
+                            # only the header KV [0, n_pre) is carried; the memory
+                            # audio re-prefills at its new positions with this chunk
+                            ids, audio_mask = self._suffix_prompt_ids(a_full + n_valid_cur,
+                                                                      suffix_tokens)
+                            embd_in = torch.cat([memory[-1][0], audio_feature])
+                            reuse = (kv_cache, n_pre)
+                        else:
+                            # chunk 1: [header | chunk-0 audio] KV is exact as-is
+                            ids, audio_mask = self._suffix_prompt_ids(n_valid_cur,
+                                                                      suffix_tokens)
+                            embd_in, reuse = audio_feature, (kv_cache, start)
                     else:
-                        # chunk 1: [header | chunk-0 audio] KV is exact as-is
-                        ids, audio_mask = self._suffix_prompt_ids(n_valid_cur, suffix_tokens)
-                        embd_in, reuse = audio_feature, (kv_cache, start)
-                else:
-                    ids, audio_mask, embd_in = full_prompt(i, audio_feature, cur["lang"],
-                                                           detecting)
-                    reuse = None
+                        ids, audio_mask, embd_in = full_prompt(i, audio_feature, cur["lang"],
+                                                               detecting)
+                        reuse = None
                 if fast_ok:
                     pend = self._dispatch_chunk(ids, audio_mask, embd_in, temperature,
                                                 reuse=reuse)
@@ -816,7 +857,9 @@ class QwenASREngine:
                     res.text += "====decode aborted: repetition circuit breaker===="
                     if self.verbose:
                         print(f"\n\n[!] retrying with temperature {temperature + 0.3:.1f}\n")
-                    ids_f, mask_f, embd_f = full_prompt(i, audio_feature, cur["lang"], detecting)
+                    with profiling.span("engine.prompt"):
+                        ids_f, mask_f, embd_f = full_prompt(i, audio_feature, cur["lang"],
+                                                            detecting)
                     res, kv_cache = self._safe_decode(ids_f, mask_f, embd_f, rollback_num,
                                                       is_last, temperature + 0.3)
                 else:
@@ -863,9 +906,10 @@ class QwenASREngine:
                 align_pool.shutdown()
 
         aligned_items.sort(key=lambda x: x.start_time)
-        t_total = time.time() - t_main
+        stats["encode_time"] = sum(enc.device_seconds(enc.seconds) for enc in encodes)
+        stats["wait_time"] = sum(enc.seconds for enc in encodes)
         if self.verbose:
-            self._print_stats(stats, total_duration, t_total)
+            self._print_stats(stats, total_duration, call.elapsed())
         if language:
             result_language = language
         else:

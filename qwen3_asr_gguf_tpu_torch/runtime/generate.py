@@ -54,6 +54,7 @@ from ..models.configs import TextDecoderConfig
 from ..ops.qtensor import kernel_rows
 from ..ops.sampling import sample
 from ..parallel.collectives import broadcast_object
+from ..utils import profiling
 
 REP_WINDOW = 15  # the repetition latch: <= REP_DISTINCT distinct tokens in the last 15
 REP_DISTINCT = 3
@@ -452,7 +453,13 @@ class Generator:
         fed, -1 where no token was (a latched step, or one never queued).
         `pos_bound` (else `state.pos_bound`) sets the 256-slot window bucket
         and the context-full check without reading `pos`. A block queued
-        after the latch is set only holds it."""
+        after the latch is set only holds it. One `decode.dispatch` span; the
+        steps queued go to the `decode.steps` counter."""
+        with profiling.span("decode.dispatch"):
+            return self._dispatch(state, temperature, pos_bound)
+
+    def _dispatch(self, state: GenState, temperature: float, pos_bound: int | None
+                  ) -> tuple[GenState, HostCopy | None]:
         bound = state.pos_bound if pos_bound is None else int(pos_bound)
         if bound + self.block > self.n_ctx:
             return state, None  # context full
@@ -464,8 +471,10 @@ class Generator:
         tok, pos, done = state.last_token, state.pos, state.done
         aborted = torch.zeros(1, dtype=torch.bool, device=dev)
         emitted = torch.full((self.block,), -1, dtype=torch.int64, device=dev)
+        steps = self.block
         for i in range(self.block):
             if self.early_exit and state.watch.seen():
+                steps = i
                 break  # the remaining steps would only hold the latch
             hidden, _ = dec.forward_step_layers(
                 layers, final_norm, self.step_cfg, embed.index_select(0, tok)[0], state.cache,
@@ -491,6 +500,7 @@ class Generator:
             pos = pos + live.to(torch.int32)
             done = done | stop
             state.watch.record(done)
+        profiling.count("decode.steps", steps)
         packed = torch.cat([emitted, done.to(torch.int64), aborted.to(torch.int64)])
         new_state = GenState(cache=state.cache, pos=pos, last_token=tok,
                              generator=state.generator, done=done,
@@ -504,7 +514,8 @@ class Generator:
         set by EOS, by the repetition latch or by a full context (None)."""
         if packed is None:
             return [], True, False
-        arr = packed.fetch()
+        with profiling.span("decode.collect"):
+            arr = packed.fetch()
         return [int(t) for t in arr[:-2] if t >= 0], bool(arr[-2]), bool(arr[-1])
 
     def decode_block(self, state: GenState, temperature: float = 0.4

@@ -10,6 +10,11 @@ qwen_asr/inference/qwen3_asr.py:584-830 and tech report: 2 s chunks,
   `unfixed_token_num` tokens (U+FFFD-safe), except during the first
   `unfixed_chunk_num` chunks which decode from scratch;
 - `finish()` flushes the remaining tail without padding.
+
+Spans (`utils.profiling`): `stream.feed` per feed,
+inside it `stream.prefix` (the rolled-back prefix, its re-encode and trim),
+`engine.encode` (a device span), `engine.prompt`, the decode's spans and
+`stream.parse`; `stream.prewarm` around `prewarm`.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import dataclasses
 from typing import List, Optional
 
 import numpy as np
+
+from ..utils import profiling
 
 SAMPLE_RATE = 16_000
 
@@ -90,14 +97,17 @@ class StreamingTranscriber:
         feed() (both default to the session values)."""
         if state.accum.size < self.chunk_samples // 4:
             return
-        prefix_full = self._prefix_text(state)
+        with profiling.span("stream.prefix"):
+            prefix_full = self._prefix_text(state)
+        eng = self.engine
         # bucketed: the aligned encode fast path compiles one program per
         # EXACT length — a growing accumulation would load a new encoder
         # program every chunk (seconds each on a remote-runtime platform,
         # even compile-cache hits). Bucket-padded, a session runs O(log T)
         # encoder programs and prewarm's mel_bucket key matches reality.
-        embd_padded = self.engine.encoder.encode_async(state.accum, bucketed=True)
-        n_audio = self.engine.encoder.valid_tokens(int(state.accum.shape[-1]))
+        with profiling.span("engine.encode", device=getattr(eng, "device", None)):
+            embd_padded = eng.encoder.encode_async(state.accum, bucketed=True)
+        n_audio = eng.encoder.valid_tokens(int(state.accum.shape[-1]))
         # n_ctx budget: the decode PROMPT drops the oldest carried prefix
         # text if header + audio + prefix + generation headroom would
         # overflow (the official stack rides vLLM's large context,
@@ -105,18 +115,18 @@ class StreamingTranscriber:
         # policy as the engine's chunk loop). The transcript keeps
         # everything: the trimmed prefix is a suffix of the full one, so
         # the continuation still concatenates exactly.
-        eng = self.engine
         detect = self.language is None
-        headroom = min(eng.config.max_new_tokens, 256)
-        header, suffix_head = eng._prompt_parts("", self.context, self.language, detect)
-        budget = max(
-            eng.config.n_ctx - headroom - len(header) - len(suffix_head) - n_audio, 0
-        )
-        ptoks_full = eng.model.encode(prefix_full) if prefix_full else []
-        prefix = prefix_full
-        if len(ptoks_full) > budget:
-            kept = ptoks_full[len(ptoks_full) - budget:]
-            prefix = eng.model.decode(kept, skip_special=False).lstrip("�") if kept else ""
+        with profiling.span("stream.prefix"):
+            headroom = min(eng.config.max_new_tokens, 256)
+            header, suffix_head = eng._prompt_parts("", self.context, self.language, detect)
+            budget = max(
+                eng.config.n_ctx - headroom - len(header) - len(suffix_head) - n_audio, 0
+            )
+            ptoks_full = eng.model.encode(prefix_full) if prefix_full else []
+            prefix = prefix_full
+            if len(ptoks_full) > budget:
+                kept = ptoks_full[len(ptoks_full) - budget:]
+                prefix = eng.model.decode(kept, skip_special=False).lstrip("�") if kept else ""
         ids, mask = self.engine._build_prompt_ids(
             n_audio, prefix, self.context, self.language, detect
         )
@@ -135,7 +145,8 @@ class StreamingTranscriber:
         # decode -> (language, clean text); forced language passes through
         from ..text.parsing import parse_asr_output
 
-        lang, txt = parse_asr_output(prefix_full + res.text, user_language=self.language)
+        with profiling.span("stream.parse"):
+            lang, txt = parse_asr_output(prefix_full + res.text, user_language=self.language)
         state.language = lang
         state.text = txt
 
@@ -161,6 +172,10 @@ class StreamingTranscriber:
         from .generate import prompt_bucket
 
         def work():
+            with profiling.span("stream.prewarm"):
+                warm()
+
+        def warm():
             # per-call overrides only — a background prewarm must not mutate
             # self.temperature / engine config shared with a live feed()
             eng = self.engine
@@ -233,17 +248,19 @@ class StreamingTranscriber:
         streaming_transcribe :657-765). Returns the updated state (in place)."""
         if state.finished:
             raise RuntimeError("stream already finished")
-        state.buffer = np.concatenate([state.buffer, np.asarray(pcm, np.float32).reshape(-1)])
-        while state.buffer.size >= self.chunk_samples:
-            chunk, state.buffer = (
-                state.buffer[: self.chunk_samples],
-                state.buffer[self.chunk_samples :],
-            )
-            state.accum = np.concatenate([state.accum, chunk])
-            if state.accum.size > self.max_samples:
-                state.accum = state.accum[-self.max_samples :]
-            state.chunks_seen += 1
-            self._decode_accum(state)
+        with profiling.span("stream.feed"):
+            state.buffer = np.concatenate([state.buffer,
+                                           np.asarray(pcm, np.float32).reshape(-1)])
+            while state.buffer.size >= self.chunk_samples:
+                chunk, state.buffer = (
+                    state.buffer[: self.chunk_samples],
+                    state.buffer[self.chunk_samples :],
+                )
+                state.accum = np.concatenate([state.accum, chunk])
+                if state.accum.size > self.max_samples:
+                    state.accum = state.accum[-self.max_samples :]
+                state.chunks_seen += 1
+                self._decode_accum(state)
         return state
 
     def finish(self, state: StreamingState) -> str:

@@ -47,7 +47,7 @@ COPIED = ["schema.py", "models/configs.py", "formats/__init__.py", "formats/gguf
           "formats/quants.py", "text/__init__.py", "text/tokenizer.py", "text/parsing.py",
           "text/align_text.py", "text/itn.py", "text/exporters.py", "utils/__init__.py",
           "utils/languages.py", "audio/io.py", "native.py", "audio/split.py",
-          "runtime/streaming.py", "runtime/model_api.py", "formats/__main__.py"]
+          "runtime/model_api.py", "formats/__main__.py"]
 
 
 def _forbidden(name: str) -> bool:
