@@ -1037,20 +1037,33 @@ def mlp_kernel_phase(torch, dev) -> list[dict]:
 class StepCounter:
     """Counts the decode steps, prefills and LM-head products of a run by
     wrapping the decoder's functions (the runtime calls them through the
-    module), independently of the kernels' own launch counts."""
+    module), independently of the kernels' own launch counts. A step
+    replayed as a CUDA graph calls no function: at exit each replay
+    (counter `decode.graph_replays`) counts one step and one LM-head
+    product, and each capture (`decode.graph_captures`), whose calls ran
+    nothing, takes its own away."""
 
     NAMES = ("forward_step_layers", "forward_step_rows", "forward_prefill", "forward_prefill_at",
              "forward_prefill_lanes", "lm_logits")
+    GRAPHED = ("forward_step_layers", "lm_logits")
 
     def __enter__(self):
         from qwen3_asr_gguf_tpu_torch.models import decoder as dec
 
         self.dec, self.inner, self.n = dec, {}, dict.fromkeys(self.NAMES, 0)
         self.lock = threading.Lock()  # the demo's sessions decode on two threads
+        self.graphs0 = self._graph_counts()
         for name in self.NAMES:
             self.inner[name] = getattr(dec, name)
             setattr(dec, name, self._counting(name))
         return self
+
+    @staticmethod
+    def _graph_counts() -> tuple[int, int]:
+        from qwen3_asr_gguf_tpu_torch.utils.profiling import TRACER
+
+        return (TRACER.counters.get("decode.graph_replays", 0),
+                TRACER.counters.get("decode.graph_captures", 0))
 
     def _counting(self, name):
         def call(*args, **kw):
@@ -1062,6 +1075,9 @@ class StepCounter:
     def __exit__(self, *exc):
         for name, fn in self.inner.items():
             setattr(self.dec, name, fn)
+        replays, captures = (a - b for a, b in zip(self._graph_counts(), self.graphs0))
+        for name in self.GRAPHED:
+            self.n[name] += replays - captures
 
     @property
     def steps(self) -> int:
@@ -1941,7 +1957,8 @@ def time_blocks(torch, gen, state, runs: int = 3) -> list[tuple[float, int]]:
         with StepCounter() as sc:
             t0 = time.time()
             fresh_block(gen, state, seed)
-            out.append((time.time() - t0, sc.steps))
+            wall = time.time() - t0
+        out.append((wall, sc.steps))
     return out
 
 
@@ -2904,7 +2921,12 @@ def recorded_products(torch, run, keep=None):
 
     def dispatching(self, *args, **kw):
         first = len(products)
-        state, packed = dispatch(self, *args, **kw)
+        # eager steps: a replayed graph calls no `lm_logits` to record
+        graphs, self.cuda_graphs = self.cuda_graphs, False
+        try:
+            state, packed = dispatch(self, *args, **kw)
+        finally:
+            self.cuda_graphs = graphs
         blocks.append((first, len(products), packed))
         return state, packed
 
@@ -3032,9 +3054,12 @@ def lockstep_batcher_run(torch, engine) -> dict:
 def with_int8_kv(torch, engine):
     """`engine` with its generator's KV cache dtype set to int8, as
     `kv_cache_dtype="int8"` builds it (a batcher takes its caches' dtype from
-    there), without loading the checkpoint again."""
+    there), without loading the checkpoint again. Its single-stream steps
+    run eagerly on fresh int8 caches: the graphs and the cache pool hold
+    bf16 caches."""
     engine.config.kv_cache_dtype = "int8"
     engine.generator.cache_dtype = torch.int8
+    engine.generator.cuda_graphs = False
     return engine
 
 
@@ -3489,11 +3514,13 @@ def main() -> int:
     engine.aligner = None
     compare["aligner_off"] = timed_asr(0.4)[1]
     engine.aligner = aligner
+    # the plain attention in eager steps: the captured graphs replay the kernel
     attn.gqa_decode_attention = attn.gqa_decode_attention_ref
+    graphs, engine.generator.cuda_graphs = engine.generator.cuda_graphs, False
     try:
         _, compare["aligned_plain_attention"], plain_counts = timed_asr(0.4)
     finally:
-        attn.gqa_decode_attention = fast
+        attn.gqa_decode_attention, engine.generator.cuda_graphs = fast, graphs
     compare["aligned_kernel_again"] = timed_asr(0.4)[1]
     engine.config.pipelined_dispatch = False  # the synchronous flow
     try:

@@ -11,11 +11,14 @@ Calling convention of every C entry point: pointers and the CUDA stream are
 `c_void_p`, sizes and flags `c_int`, the epsilon `c_float`; the function
 returns `cudaGetLastError()` after its launches, and `check` raises if it is
 not 0 (a refused launch never runs, and a later synchronize would not
-report it). Each wrapper counts its launches with `count_launch`.
+report it). Each wrapper counts its launches with `count_launch`; a launch
+captured into a CUDA graph is counted at each replay instead
+(`capture_tally`, `add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -99,6 +102,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+_capturing = threading.local()  # .tally: launches of a graph being captured on this thread
 _lib: ctypes.CDLL | None = None
 
 
@@ -175,6 +179,32 @@ def check(rc: int, what: str) -> None:
 
 
 def count_launch(wrapper) -> None:
-    """Add one to a wrapper's launch count (two threads may launch)."""
+    """Add one to a wrapper's launch count (two threads may launch); inside
+    `capture_tally` on this thread, to the graph's tally instead: a capture
+    launches nothing."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+        return
     with _count_lock:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Collect the launches made on this thread inside the block (a CUDA
+    graph's capture) into the dict it yields, for `add_launches` at each
+    replay of the graph."""
+    _capturing.tally = {}
+    try:
+        yield _capturing.tally
+    finally:
+        _capturing.tally = None
+
+
+def add_launches(tally: dict) -> None:
+    """Count the launches of one replay of a graph captured under
+    `capture_tally`."""
+    with _count_lock:
+        for wrapper, n in tally.items():
+            wrapper.launches += n

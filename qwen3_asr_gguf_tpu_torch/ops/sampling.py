@@ -4,6 +4,11 @@ top_p -> temperature -> categorical, or greedy when temperature == 0.
 
 The random draw comes from an explicit `torch.Generator` on the logits'
 device; it gives other numbers than the JAX key for the same seed.
+
+`sample` also takes the temperature as a 1-element f32 tensor on the
+logits' device (a captured decode step's, which a replay reads there): the
+caller has then chosen the chain over greedy, and the draws are those of the
+same temperature given as a float.
 """
 
 from __future__ import annotations
@@ -11,11 +16,23 @@ from __future__ import annotations
 import torch
 
 
+def _scaled_as_float(vals: torch.Tensor, temperature: torch.Tensor) -> torch.Tensor:
+    """vals / temperature (a device tensor) with the float route's bits: on
+    the card PyTorch divides by a host scalar as a product with the scalar's
+    reciprocal in f32, on the CPU it divides."""
+    t = torch.clamp(temperature, min=1e-6)
+    return vals * torch.reciprocal(t) if vals.is_cuda else vals / t
+
+
 def _topk_topp_draw(logits: torch.Tensor, generator: torch.Generator,
-                    temperature: torch.Tensor | float, top_p: float, top_k: int) -> torch.Tensor:
-    """logits [B, V], temperature a float or [B, 1] -> one token per row."""
+                    temperature: torch.Tensor | float, top_p: float, top_k: int,
+                    as_float: bool = False) -> torch.Tensor:
+    """logits [B, V], temperature a float or [B, 1] (`as_float`: a [1]
+    tensor scaling as `_scaled_as_float`) -> one token per row."""
     vals, idx = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1)  # exact, sorted
-    if isinstance(temperature, torch.Tensor):
+    if as_float:
+        scaled = _scaled_as_float(vals, temperature)
+    elif isinstance(temperature, torch.Tensor):
         scaled = vals / torch.clamp(temperature, min=1e-6)
     else:
         scaled = vals / max(temperature, 1e-6)
@@ -41,11 +58,12 @@ def _categorical(probs: torch.Tensor, generator: torch.Generator) -> torch.Tenso
 def sample_topk_topp(
     logits: torch.Tensor,  # [V] f32
     generator: torch.Generator,
-    temperature: float,
+    temperature: float | torch.Tensor,  # a float, or [1] f32 on the logits' device
     top_p: float = 1.0,
     top_k: int = 50,
 ) -> torch.Tensor:
-    return _topk_topp_draw(logits[None], generator, temperature, top_p, top_k)[0]
+    return _topk_topp_draw(logits[None], generator, temperature, top_p, top_k,
+                           as_float=isinstance(temperature, torch.Tensor))[0]
 
 
 def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -55,12 +73,13 @@ def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
 def sample(
     logits: torch.Tensor,
     generator: torch.Generator,
-    temperature: float,
+    temperature: float | torch.Tensor,
     top_p: float = 1.0,
     top_k: int = 50,
 ) -> torch.Tensor:
-    """Greedy at temperature <= 0, else the top-k/top-p chain."""
-    if temperature <= 0.0:
+    """Greedy at a float temperature <= 0, else the top-k/top-p chain (always
+    the chain for a tensor temperature, which is never read on the host)."""
+    if not isinstance(temperature, torch.Tensor) and temperature <= 0.0:
         return sample_greedy(logits)
     return sample_topk_topp(logits, generator, temperature, top_p, top_k)
 

@@ -413,8 +413,10 @@ class QwenASREngine:
         return result, latest.cache
 
     def _dispatch_chunk(self, ids, audio_mask, audio_embd, temperature: float, reuse=None):
-        """Prefill and ONE block, queued with no wait (JAX engine.py:494-515;
-        valid when max_new_tokens <= block) -> a pending dict for
+        """Prefill and ONE block, queued without waiting for the block's
+        result (JAX engine.py:494-515; valid when max_new_tokens <= block;
+        with CUDA graphs the host returns once the card is within
+        `generate.GRAPH_LAG` steps of the block's end) -> a pending dict for
         `_collect_chunk`, or None when the context is full (the caller then
         takes `_safe_decode`)."""
         gen = self.generator

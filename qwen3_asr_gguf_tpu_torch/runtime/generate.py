@@ -30,6 +30,18 @@ Prompts are padded to `prompt_bucket` lengths (padding keys are masked) and
 decode attends to a window of the cache rounded up to 256 slots, as in the
 JAX package. The KV cache is updated in place.
 
+A decode step is one body (`Generator._step`) that reads the step index
+from a device counter and updates the token, position, latches and emitted
+buffer in place. On the card without a mesh the host replays it as one
+captured CUDA graph per step (`cuda_graphs`): a graph per (cache, 256-slot
+window, greedy or not), captured at the first use of that key, on the
+Generator's static buffers and its registered random generator, into which
+each block copies its state and out of which it takes the result. The
+graphs hold their cache's addresses, so `new_cache` then hands out the
+persistent caches of a `CachePool`. The host stays at most `GRAPH_LAG` steps
+ahead of the last step the card has finished, which bounds the work queued
+after an EOS. Elsewhere the same body runs eagerly.
+
 With a `mesh` (`parallel.sharding.make_mesh`, one process per rank) the
 Generator runs tensor-parallel: every rank holds its Megatron tiles of the
 unfused weights and a KV cache of kv_heads/tp heads, each layer ends in the
@@ -45,12 +57,16 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
+import time
+import weakref
 
 import numpy as np
 import torch
 
 from ..models import decoder as dec
 from ..models.configs import TextDecoderConfig
+from ..ops import _build
 from ..ops.qtensor import kernel_rows
 from ..ops.sampling import sample
 from ..parallel.collectives import broadcast_object
@@ -58,6 +74,11 @@ from ..utils import profiling
 
 REP_WINDOW = 15  # the repetition latch: <= REP_DISTINCT distinct tokens in the last 15
 REP_DISTINCT = 3
+# replayed steps the host queues past the last one the card has finished: it
+# bounds the steps queued after an EOS or the repetition latch. Against 16, 32
+# and a whole 96-step block on an H100, 3 made a 120 s call 3-5% slower where
+# no block ended early and 9-40% faster where blocks latched (0.6B and 1.7B)
+GRAPH_LAG = 3
 
 
 class DoneWatch:
@@ -113,6 +134,108 @@ class HostCopy:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+
+class PooledCache(dict):
+    """A KV cache handed out by a `CachePool`: the slot's tensors, in a dict
+    of its own whose collection gives the slot back."""
+
+    slot: int
+
+
+class CachePool:
+    """Persistent KV caches, one per slot, each handed out to one holder at
+    a time: a captured decode graph holds its cache's addresses, so the
+    caches it replays on must outlive every call. `take()` zeroes a free
+    slot's tensors (as a fresh cache) and returns them in a `PooledCache`;
+    the slot is free again once nothing holds that dict. `size` is the
+    number of slots made: the most that were held at once."""
+
+    def __init__(self, make):
+        self._make = make
+        self._caches: list[dict] = []
+        self._free: list[int] = []
+        self._lock = threading.Lock()
+
+    @property
+    def size(self) -> int:
+        return len(self._caches)
+
+    def take(self) -> PooledCache:
+        with self._lock:
+            if self._free:
+                slot = min(self._free)
+                self._free.remove(slot)
+                fresh = False
+            else:
+                slot, fresh = len(self._caches), True
+                self._caches.append(self._make())
+        cache = PooledCache(self._caches[slot])
+        if not fresh:
+            for tensors in cache.values():
+                for t in tensors:
+                    t.zero_()
+        cache.slot = slot
+        weakref.finalize(cache, self._give_back, slot)
+        return cache
+
+    def owns(self, cache: dict) -> bool:
+        """Whether `cache` holds this pool's own tensors of its slot (not a
+        copy, nor another pool's slot)."""
+        return (isinstance(cache, PooledCache) and cache.slot < len(self._caches)
+                and cache["k"] is self._caches[cache.slot]["k"])
+
+    def _give_back(self, slot: int) -> None:
+        with self._lock:
+            self._free.append(slot)
+
+
+@dataclasses.dataclass
+class StepBuffers:
+    """A block's device state, updated in place by each step: the token to
+    feed, its position, the EOS / repetition latch, the repetition abort,
+    the tokens fed (-1 where none was) and the step index."""
+
+    tok: torch.Tensor  # [1] int64
+    pos: torch.Tensor  # [1] int32
+    done: torch.Tensor  # [1] bool
+    aborted: torch.Tensor  # [1] bool
+    emitted: torch.Tensor  # [block] int64
+    step: torch.Tensor  # [1] int64
+
+    @classmethod
+    def empty(cls, block: int, device) -> "StepBuffers":
+        def z(dtype, n=1):
+            return torch.zeros(n, dtype=dtype, device=device)
+
+        return cls(z(torch.int64), z(torch.int32), z(torch.bool), z(torch.bool),
+                   z(torch.int64, block), z(torch.int64))
+
+    def load(self, state: "GenState") -> None:
+        """Start a block from `state` (copies on the device)."""
+        self.tok.copy_(state.last_token)
+        self.pos.copy_(state.pos)
+        self.done.copy_(state.done)
+        self.aborted.zero_()
+        self.emitted.fill_(-1)
+        self.step.zero_()
+
+    def packed(self) -> torch.Tensor:
+        """`[emitted..., done, aborted]` (int64), a new tensor."""
+        return torch.cat([self.emitted, self.done.to(torch.int64), self.aborted.to(torch.int64)])
+
+
+class DecodeGraph:
+    """One captured decode step and the kernel launches its capture counted
+    (`ops._build.capture_tally`), added to the wrappers' counts at each
+    replay."""
+
+    def __init__(self, graph, launches: dict):
+        self.graph, self.launches = graph, launches
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _build.add_launches(self.launches)
 
 
 @dataclasses.dataclass
@@ -215,11 +338,22 @@ class Generator:
         fused_mlp: bool | None = None,
         device="cuda",
         mesh=None,
+        cuda_graphs: bool = True,
     ):
         """`fused_mlp`: the decode step's MLP through the fused int8 kernel
         (`ops.mlp.fused_mlp_matvec`) where the weights allow it
         (`_mlp_fusable`). None turns it on when the weights are on the card
         and off on the CPU, whose unfused side the goldens come from.
+
+        `cuda_graphs`: replay each decode step as a captured CUDA graph (see
+        the module docstring); forced off on the CPU and under a mesh, whose
+        ranks' collectives must meet step by step. A graph holds what the
+        step called at its capture: this module's `sample` and the decoder's
+        functions (`dec.lm_logits`, `ops.attn.gqa_decode_attention`, ...) as
+        they were then, and the device buffers they used. So a wrapper of
+        any of them (the benchmark's tap of `sample`) is installed before
+        the first block is dispatched and outlives the Generator's last
+        replay; one installed later is not called by the replays.
 
         `mesh`: a `DeviceMesh` ("data", "model") of the initialised world;
         `params` are the whole unfused weights (every rank passes the same),
@@ -253,6 +387,18 @@ class Generator:
             fused_mlp = self.device.type == "cuda"
         self.fused_mlp = bool(fused_mlp) and self._mlp_fusable()
         self._layers_list = None
+        # the repetition latch's window: the last REP_WINDOW slots up to the step index
+        self._rep_back = torch.arange(1 - REP_WINDOW, 1, device=self.device)
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda" and mesh is None
+        self.cache_pool = CachePool(self._fresh_cache) if self.cuda_graphs else None
+        # (cache slot, window, greedy, block) -> graph
+        self.graphs: dict[tuple, DecodeGraph] = {}
+        self._graph_lock = threading.Lock()  # one block at a time on the static buffers
+        self._static: dict[int, StepBuffers] = {}  # per block length
+        self._temp: torch.Tensor | None = None  # [1] f32: the non-greedy graphs' temperature
+        self._graph_rng: torch.Generator | None = None
+        self._graph_pool = self._capture_stream = None
+        self._lag_events: list = []
 
     def _shard(self, params: dict, mesh) -> dict:
         from ..parallel import sharding as S
@@ -299,6 +445,12 @@ class Generator:
         return m % 512 == 0 and d % 128 == 0 and isinstance(layer.get("down_proj"), Int8Weight)
 
     def new_cache(self) -> dict:
+        """A zeroed KV cache: with `cuda_graphs` a free slot of the pool."""
+        if self.cuda_graphs:
+            return self.cache_pool.take()
+        return self._fresh_cache()
+
+    def _fresh_cache(self) -> dict:
         # whole 256-slot tiles at any n_ctx: the decode window (a 256-slot
         # bucket) is then always one the attention kernel takes; positions
         # stay below n_ctx, so the extra slots are never attended to
@@ -446,15 +598,19 @@ class Generator:
     def decode_block_dispatch(self, state: GenState, temperature: float = 0.4,
                               pos_bound: int | None = None
                               ) -> tuple[GenState, HostCopy | None]:
-        """Queue one block of up to `block` steps without waiting (JAX
-        generate.py:729-771) -> (state after the block, its packed
+        """Queue one block of up to `block` steps without waiting for its
+        result (JAX generate.py:729-771) -> (state after the block, its packed
         `[emitted..., done, aborted]` with the copy to the host queued), or
         (state, None) when the context is full. `emitted` holds the tokens
         fed, -1 where no token was (a latched step, or one never queued).
         `pos_bound` (else `state.pos_bound`) sets the 256-slot window bucket
         and the context-full check without reading `pos`. A block queued
-        after the latch is set only holds it. One `decode.dispatch` span; the
-        steps queued go to the `decode.steps` counter."""
+        after the latch is set only holds it. Replayed steps are queued at
+        most `GRAPH_LAG` ahead of the last one the card has finished, so the
+        host returns when the card is that close to the block's end. One
+        `decode.dispatch` span; the steps queued go to the `decode.steps`
+        counter, those of them replayed as a CUDA graph to
+        `decode.graph_replays`."""
         with profiling.span("decode.dispatch"):
             return self._dispatch(state, temperature, pos_bound)
 
@@ -465,47 +621,136 @@ class Generator:
             return state, None  # context full
         # attend to the live prefix only, in 256-slot window buckets
         win = round_up(bound + self.block, 256)
-        layers, final_norm = self.layers_list, self.params["final_norm"]
-        embed = self.params["embed"]
-        dev = self.device
-        tok, pos, done = state.last_token, state.pos, state.done
-        aborted = torch.zeros(1, dtype=torch.bool, device=dev)
-        emitted = torch.full((self.block,), -1, dtype=torch.int64, device=dev)
-        steps = self.block
-        for i in range(self.block):
-            if self.early_exit and state.watch.seen():
-                steps = i
-                break  # the remaining steps would only hold the latch
-            hidden, _ = dec.forward_step_layers(
-                layers, final_norm, self.step_cfg, embed.index_select(0, tok)[0], state.cache,
-                pos, attn_window=win, fused_mlp=self.fused_mlp, tp_group=self.tp_group)
-            logits = dec.lm_logits(self.params, hidden, self.cfg.lm_head_dim, self.tp_group)
-            nxt = sample(logits, state.generator, temperature).view(1).to(torch.int64)
-            live = ~done
-            emitted[i: i + 1] = torch.where(live, tok, -1)
-            stop = self._is_eos(nxt)
-            if self.block > REP_WINDOW and i >= REP_WINDOW:
-                # the repetition latch of JAX generate.py:443-460: <= 3
-                # distinct tokens among this block's last 15 emitted; the
-                # engine's host check over the stable stream stays
-                # authoritative across blocks
-                win_toks = emitted[i - REP_WINDOW + 1: i + 1]
-                eq = win_toks[:, None] == win_toks[None, :]
-                first = torch.tril(eq, diagonal=-1).sum(1) == 0
-                distinct = (first & (win_toks >= 0)).sum()
-                rep = live & (distinct <= REP_DISTINCT)
-                aborted = aborted | rep
-                stop = stop | rep
-            tok = torch.where(live, nxt, tok)
-            pos = pos + live.to(torch.int32)
-            done = done | stop
-            state.watch.record(done)
+        if self.cuda_graphs and self.cache_pool.owns(state.cache):
+            with self._graph_lock:
+                b, steps = self._graphed_block(state, win, temperature)
+                packed = b.packed()
+                pos, tok, done = b.pos.clone(), b.tok.clone(), b.done.clone()
+        else:
+            b = StepBuffers.empty(self.block, self.device)
+            b.load(state)
+            steps = self.block
+            for i in range(self.block):
+                if self.early_exit and state.watch.seen():
+                    steps = i
+                    break  # the remaining steps would only hold the latch
+                self._step(b, state.cache, win, temperature, state.generator)
+                state.watch.record(b.done)
+            packed, pos, tok, done = b.packed(), b.pos, b.tok, b.done
         profiling.count("decode.steps", steps)
-        packed = torch.cat([emitted, done.to(torch.int64), aborted.to(torch.int64)])
         new_state = GenState(cache=state.cache, pos=pos, last_token=tok,
                              generator=state.generator, done=done,
                              pos_bound=bound + self.block, watch=state.watch)
         return new_state, HostCopy(packed)
+
+    def _step(self, b: StepBuffers, cache: dict, win: int, temperature,
+              generator: torch.Generator) -> None:
+        """One decode step on `b`, in place, with no host value of the step:
+        the token at `b.pos` goes through the decoder (its K/V written at
+        `b.pos`), the next one is sampled, the token fed is written to
+        `b.emitted` at the step index and the latches are updated. A step
+        after the latch holds the token and the position and emits -1.
+        `temperature`: a float, or the [1] f32 device tensor of a non-greedy
+        graph. The repetition latch (JAX generate.py:443-460): <= 3 distinct
+        tokens among this block's last 15 emitted, from its 16th step on; the
+        engine's host check over the stable stream stays authoritative
+        across blocks."""
+        hidden, _ = dec.forward_step_layers(
+            self.layers_list, self.params["final_norm"], self.step_cfg,
+            self.params["embed"].index_select(0, b.tok)[0], cache, b.pos, attn_window=win,
+            fused_mlp=self.fused_mlp, tp_group=self.tp_group)
+        logits = dec.lm_logits(self.params, hidden, self.cfg.lm_head_dim, self.tp_group)
+        nxt = sample(logits, generator, temperature).view(1).to(torch.int64)
+        live = ~b.done
+        b.emitted.index_copy_(0, b.step, torch.where(live, b.tok, -1))
+        stop = self._is_eos(nxt)
+        if self.block > REP_WINDOW:
+            win_toks = b.emitted.index_select(0, torch.clamp(b.step + self._rep_back, min=0))
+            eq = win_toks[:, None] == win_toks[None, :]
+            first = torch.tril(eq, diagonal=-1).sum(1) == 0
+            distinct = (first & (win_toks >= 0)).sum()
+            rep = live & (distinct <= REP_DISTINCT) & (b.step >= REP_WINDOW)
+            b.aborted.logical_or_(rep)
+            stop = stop | rep
+        b.tok.copy_(torch.where(live, nxt, b.tok))
+        b.pos.add_(live.to(torch.int32))
+        b.done.logical_or_(stop)
+        b.step.add_(1)
+
+    def _graphed_block(self, state: GenState, win: int, temperature: float
+                       ) -> tuple[StepBuffers, int]:
+        """A block's steps as replays of the graph of (the state's cache
+        slot, `win`, greedy or not, `block`) on the static buffers, capturing
+        it at its first use (counter `decode.graph_captures`; steps replayed
+        `decode.graph_replays`). The state's random stream is copied into
+        the graphs' generator and back, so a state draws the numbers it
+        draws eagerly. Inside a `torch.profiler` session a key not yet
+        captured runs eagerly. The host queues step i only once the card
+        has finished step i - `GRAPH_LAG` (event queries, never a sync).
+        -> (the static buffers, steps queued)."""
+        if self._graph_rng is None:
+            self._temp = torch.zeros(1, dtype=torch.float32, device=self.device)
+            self._graph_rng = torch.Generator(device=self.device)
+            self._lag_events = [torch.cuda.Event() for _ in range(GRAPH_LAG)]
+        if self.block not in self._static:
+            self._static[self.block] = StepBuffers.empty(self.block, self.device)
+        b = self._static[self.block]
+        greedy = temperature <= 0.0
+        key = (state.cache.slot, win, greedy, self.block)
+        b.load(state)
+        if not greedy:
+            self._temp.fill_(float(temperature))
+        temp = 0.0 if greedy else self._temp
+        rng = self._graph_rng
+        rng.set_state(state.generator.get_state())
+        graph = self.graphs.get(key)
+        steps, replays = self.block, 0
+        stream = torch.cuda.current_stream(self.device)
+        for i in range(self.block):
+            if self.early_exit and state.watch.seen():
+                steps = i
+                break
+            lag = self._lag_events[i % GRAPH_LAG]
+            if i >= GRAPH_LAG:
+                while not lag.query():  # the card is GRAPH_LAG steps behind
+                    time.sleep(5e-5)
+            if graph is not None:
+                graph.replay()
+                replays += 1
+            elif profiling.profiler_active():
+                self._step(b, state.cache, win, temp, rng)
+            else:
+                graph = self.graphs[key] = self._capture(b, state.cache, win, temp)
+            state.watch.record(b.done)
+            lag.record(stream)
+        state.generator.set_state(rng.get_state())
+        profiling.count("decode.graph_replays", replays)
+        return b, steps
+
+    def _capture(self, b: StepBuffers, cache: dict, win: int, temperature) -> DecodeGraph:
+        """Run one step eagerly on the capture stream (the block's step,
+        which warms that stream up, as capture needs), then capture the
+        same step into a graph of the shared pool; nothing of the capture
+        runs. The graphs' generator is registered with it."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        side, main = self._capture_stream, torch.cuda.current_stream(self.device)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._graph_rng)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._step(b, cache, win, temperature, self._graph_rng)
+            with _build.capture_tally() as launches:
+                # thread-local: the align worker may queue work meanwhile
+                graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
+                try:
+                    self._step(b, cache, win, temperature, self._graph_rng)
+                finally:
+                    graph.capture_end()
+        main.wait_stream(side)
+        profiling.count("decode.graph_captures")
+        return DecodeGraph(graph, launches)
 
     @staticmethod
     def collect_block(packed: HostCopy | None) -> tuple[list[int], bool, bool]:

@@ -62,13 +62,18 @@ _local = threading.local()  # .stack: this thread's open spans
 _event_pool: dict = {}  # device index -> free timing events
 
 
+def profiler_active() -> bool:
+    """Whether a `torch.profiler` session is active anywhere in the process
+    (the profiler's process-wide flag; the autograd call answers for the
+    session's own thread only)."""
+    return (getattr(_autograd_profiler, "_is_profiler_enabled", False)
+            or torch._C._autograd._profiler_enabled())
+
+
 def is_recording() -> bool:
     """Whether spans are recorded now: inside `recording()`, or while a
-    `torch.profiler` session is active anywhere in the process (the
-    profiler's process-wide flag; the autograd call answers for the
-    session's own thread only)."""
-    return (_recording[0] > 0 or getattr(_autograd_profiler, "_is_profiler_enabled", False)
-            or torch._C._autograd._profiler_enabled())
+    `torch.profiler` session is active."""
+    return _recording[0] > 0 or profiler_active()
 
 
 @contextlib.contextmanager
