@@ -254,17 +254,21 @@ def write_model(d: Path, model: dict, seed: int, device) -> None:
     np.save(d / "mel_filters.npy", mel_filterbank())
 
 
-def fingerprint(cfg: dict) -> str:
-    body = {k: cfg.get(k) for k in ("model", "weights_seed")}
+def fingerprint(cfg: dict, keys: tuple = ("model", "weights_seed")) -> str:
+    body = {k: cfg.get(k) for k in keys}
     body["writer"] = WRITER_VERSION
     return hashlib.sha256(json.dumps(body, sort_keys=True).encode()).hexdigest()[:16]
 
 
-def ensure(cfg: dict, cache_root: Path, device) -> tuple[Path, bool]:
-    """(directory, written now) of `cfg`'s checkpoint under `cache_root`."""
+def ensure(cfg: dict, cache_root: Path, device, write=None,
+           keys: tuple = ("model", "weights_seed")) -> tuple[Path, bool]:
+    """(directory, written now) of `cfg`'s checkpoint under `cache_root`:
+    `write(directory)` fills it (by default `write_model` with the
+    configuration's model and weights seed), once for each value of the
+    configuration's `keys`."""
     d = cache_root / cfg["name"]
     ready = d / "ready.json"
-    fp = fingerprint(cfg)
+    fp = fingerprint(cfg, keys)
     if ready.exists() and json.loads(ready.read_text()).get("fingerprint") == fp:
         return d, False
     if d.exists():
@@ -272,7 +276,10 @@ def ensure(cfg: dict, cache_root: Path, device) -> tuple[Path, bool]:
     tmp = cache_root / f"{cfg['name']}.partial"
     if tmp.exists():
         shutil.rmtree(tmp)
-    write_model(tmp, cfg["model"], int(cfg["weights_seed"]), device)
+    if write is None:
+        write_model(tmp, cfg["model"], int(cfg["weights_seed"]), device)
+    else:
+        write(tmp)
     (tmp / "ready.json").write_text(json.dumps({"fingerprint": fp}))
     os.replace(tmp, d)
     return d, True

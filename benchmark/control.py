@@ -3,13 +3,13 @@
     python benchmark/control.py --workload NAME --seeds 1,2,3 --seconds S [--control-seeds 3]
 
 Sets the cell up once, then for each seed runs a window of `S` seconds at
-the cell's load and keeps the jobs the reference checks, with the tokens
-the port's logits put first (`tap.py`), as a run does. After the program is
-freed: the reference's numbers for every seed (the program's readings),
-and for the first `--control-seeds` seeds each control's (the reference one
-step below the stated precisions, `reference/model.py`) at the same prompts
-and served tokens, each judged by the harness's own verdict against the
-cell's limits. Prints one JSON line per seed and a summary.
+the cell's load and keeps the jobs the reference checks, filled by the
+architecture's taps (`architectures/`), as a run does. After the program
+is freed: the reference's numbers for every seed (the program's readings),
+and for the first `--control-seeds` seeds each control's (the reference
+one step below the stated precisions) at the same prompts and outputs,
+each judged by the harness's own verdict against the cell's limits. Prints
+one JSON line per seed and a summary.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-CONTROLS = ("fp8", "int4dec")
 
 
 def main(argv=None) -> int:
@@ -35,65 +34,67 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from benchmark import checkpoint, harness, tap
-    from benchmark.reference.check import Reference, numbers
+    from benchmark import harness
 
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
     cell = harness.Cell(ROOT / "benchmark", args.workload)
-    ckpt, _ = checkpoint.ensure(cell.config, ROOT / "benchmark" / ".cache" / "ckpt", device)
+    arch, limits = cell.arch, cell.spec["limits"]
+    ckpt, _ = arch.checkpoint(cell.config, ROOT / "benchmark" / ".cache" / "ckpt", device)
     seeds = [int(s) for s in args.seeds.split(",")]
-    firsts = tap.ArgmaxTap(device)
-    firsts.install()
+    taps = arch.taps(device)
+    for tap in taps:
+        tap.install()
     driver = cell.driver_class()(cell, ckpt, seeds[0], device)
     driver.setup()
     driver.warm()
     per_seed = []
     for seed in seeds:
         driver.reset(seed)
-        firsts.reset()
+        for tap in taps:
+            tap.reset()
         t0 = time.perf_counter()
         driver.run(args.seconds)
-        argmax, sampled, _ = firsts.read()
+        records = [tap.read() for tap in taps]
         jobs = driver.jobs(np.random.default_rng([seed, 7]))
-        for job in jobs:
-            if job["served"]:
-                job["firsts"] = tap.firsts(job["served"], argmax, sampled)
+        for tap, record in zip(taps, records):
+            tap.fill(jobs, record)
         per_seed.append((seed, jobs))
         print(f"seed {seed}: window {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
-    firsts.remove()
+    for tap in reversed(taps):
+        tap.remove()
     driver.close()
-    del driver, firsts
+    del driver, taps
     harness.free(torch)
 
-    ref = Reference(ckpt, cell.config, device)
+    ref = arch.reference(ckpt, cell.config, device)
     rows = []
     for i, (seed, jobs) in enumerate(per_seed):
-        keep = i < args.control_seeds
-        gaps = [ref.gaps(job, keep=keep) for job in jobs if job["served"]]
-        got, bad = numbers(gaps), sum(job["served"] is None for job in jobs)
-        rows.append({"seed": seed, "program": got, "mismatched": bad,
-                     "program_correct": harness.verdict(got, bad, cell.spec["limits"])[1]})
+        got = arch.numbers([ref.judge(job, keep=i < args.control_seeds) for job in jobs])
+        rows.append({"seed": seed, "program": got,
+                     "program_correct": harness.verdict(got, limits, arch.FIXED)[1]})
     del ref
     harness.free(torch)
-    for mode in CONTROLS:
-        ctl = Reference(ckpt, cell.config, device, control=mode)
+    for mode in arch.CONTROLS:
+        ctl = arch.reference(ckpt, cell.config, device, control=mode)
         for i, (seed, jobs) in enumerate(per_seed[: args.control_seeds]):
-            got = numbers([ctl.control_gaps(job) for job in jobs if job["served"]])
+            got = arch.numbers([ctl.control(job) for job in jobs])
             rows[i][mode] = got
-            rows[i][f"{mode}_correct"] = harness.verdict(got, 0, cell.spec["limits"])[1]
+            rows[i][f"{mode}_correct"] = harness.verdict(got, limits, arch.FIXED)[1]
         del ctl
         harness.free(torch)
     for r in rows:
         print(json.dumps(r), flush=True)
     summary = {"workload": args.workload, "seeds": len(rows),
                "card": torch.cuda.get_device_name(0)}
-    for key in ("gap_widest", "gap_mean"):
-        summary[f"program_max.{key}"] = max(r["program"][key] for r in rows)
-        for mode in CONTROLS:
-            summary[f"{mode}_min.{key}"] = min(r[mode][key] for r in rows if mode in r)
+    for key in rows[0]["program"]:
+        values = [r["program"][key] for r in rows if r["program"][key] is not None]
+        summary[f"program_max.{key}"] = max(values) if values else None
+        for mode in arch.CONTROLS:
+            got = [r[mode][key] for r in rows if mode in r and r[mode][key] is not None]
+            summary[f"{mode}_min.{key}"] = min(got) if got else None
     print(json.dumps(summary), flush=True)
     return 0
 

@@ -4,7 +4,10 @@ per-layer metric is read by a reader of its own.
 
     benchmark/workloads/<cell>.json   {"config", "traffic", "driver", "params", "limits",
                                        "trace": {"unit", "units"}}
-    benchmark/configs/<config>.json   widths, weights seed, engine settings, "assumed"
+    benchmark/configs/<config>.json   widths, weights seed, engine settings, "assumed",
+                                      and "architecture" (default qwen3_asr)
+    benchmark/architectures/<arch>.py checkpoint writer, taps, reference and controls,
+                                      the numbers judged (architectures/__init__.py)
     benchmark/traffic/<driver>.py     class Driver (its interface: traffic/__init__.py)
     benchmark/metrics/<metric>.py     read(ctx) -> value or None; a metric
                                       "<base>.<cell kind>" falls back to <base>.py
@@ -24,6 +27,8 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from .architectures import load as load_architecture
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "qwen3_asr_gguf_tpu")
 
@@ -47,6 +52,7 @@ class Cell:
         self.spec = load_json(bench / "workloads" / f"{name}.json")
         self.config = load_json(bench / "configs" / f"{self.spec['config']}.json")
         self.params = self.spec["params"]
+        self.arch = load_architecture(bench, self.config)
 
     def driver_class(self):
         mod = load_module(self.bench / "traffic" / f"{self.spec['driver']}.py",
@@ -81,36 +87,36 @@ def check_lines(checks: dict) -> list[str]:
     return [f"check {name}: {c['value']!r} limit {c['limit']!r}" for name, c in checks.items()]
 
 
-def judge(ckpt: Path, cfg: dict, jobs: list, device) -> tuple[dict, int]:
-    """The reference's numbers over `jobs` (`reference/check.py`), and how
-    many jobs mismatched (served None: a feed whose tokens do not begin with
-    the carried text the reference works out)."""
+def judge(arch, ckpt: Path, cfg: dict, jobs: list, device) -> dict:
+    """The architecture's reference over `jobs`: every number its cells'
+    limits may name."""
     import torch
 
-    from .reference.check import Reference, numbers
-
-    ref = Reference(ckpt, cfg, device)
-    gaps, mismatched = [], 0
-    for job in jobs:
-        if job["served"] is None:
-            mismatched += 1
-        elif job["served"]:
-            gaps.append(ref.gaps(job))
+    ref = arch.reference(ckpt, cfg, device)
+    results = [ref.judge(job) for job in jobs]
     del ref
     free(torch)
-    return numbers(gaps), mismatched
+    return arch.numbers(results)
 
 
-def verdict(got: dict, mismatched: int, limits: dict) -> tuple[dict, bool]:
+def verdict(got: dict, limits: dict, fixed: dict) -> tuple[dict, bool]:
     """Each compared number beside its limit, and whether all hold: every
-    gap the cell's file limits (`gap_widest`, `gap_mean`), no mismatched
-    job, and at least `min_judged` positions judged."""
-    checks = {k: {"value": got[k], "limit": limits[k]} for k in ("gap_widest", "gap_mean")
-              if k in limits}
-    correct = all(c["value"] is not None and c["value"] <= c["limit"] for c in checks.values())
-    checks["prompt_mismatches"] = {"value": mismatched, "limit": 0}
-    checks["judged"] = {"value": got["judged"], "limit": limits["min_judged"]}
-    correct = correct and mismatched == 0 and got["judged"] >= limits["min_judged"]
+    number the cell's limits name at most its limit, each of the
+    architecture's `fixed` numbers at most its own (a mismatch count, 0),
+    and for each limit `min_<count>` at least that many judged."""
+    checks, correct = {}, True
+    for key, limit in limits.items():
+        if not key.startswith("min_"):
+            checks[key] = {"value": got.get(key), "limit": limit}
+            correct = correct and got.get(key) is not None and got[key] <= limit
+    for key, limit in fixed.items():
+        checks[key] = {"value": got[key], "limit": limit}
+        correct = correct and got[key] <= limit
+    for key, limit in limits.items():
+        if key.startswith("min_"):
+            name = key[len("min_"):]
+            checks[name] = {"value": got[name], "limit": limit}
+            correct = correct and got[name] >= limit
     return checks, correct
 
 
@@ -120,16 +126,20 @@ def run(bench: Path, contract: dict, name: str, seed: int, seconds: float, trace
     return the result's fields (without the device block)."""
     import torch
 
-    from . import checkpoint, roofline, tap
+    from . import roofline
     from . import trace as tracing
 
     cell = Cell(bench, name)
-    ckpt, written = checkpoint.ensure(cell.config, cache / "ckpt", device)
+    arch = cell.arch
+    ckpt, written = arch.checkpoint(cell.config, cache / "ckpt", device)
     log(f"checkpoint {ckpt} ({'written' if written else 'cached'}) "
         f"at {time.perf_counter() - t_start:.1f} s")
-    firsts = tap.ArgmaxTap(device)
-    firsts.install()
+    taps = arch.taps(device)
+    installed = []
     try:
+        for tap in taps:
+            tap.install()
+            installed.append(tap)
         driver = cell.driver_class()(cell, ckpt, seed, device)
         driver.setup()
         driver.warm()
@@ -138,37 +148,38 @@ def run(bench: Path, contract: dict, name: str, seed: int, seconds: float, trace
             tracing.throwaway(torch)
             tw = cell.spec["trace"]
             tracer = tracing.UnitTrace(torch, tw["unit"], tw["units"])
-        firsts.reset()
+        for tap in taps:
+            tap.reset()
         setup_s = time.perf_counter() - t_start
         log(f"set-up {setup_s:.1f} s; window {seconds} s")
         summary = driver.run(seconds, tracer)
-        argmax, sampled, overflow = firsts.read()
+        records = [tap.read() for tap in taps]
     finally:
-        firsts.remove()
+        for tap in reversed(installed):
+            tap.remove()
     if tracer is not None:
         tracer.close()
         log(f"trace: units {tracer.units}, {tracer.n_events} device events"
             + (f"; failed: {tracer.error!r}" if tracer.error is not None else ""))
     peak = torch.cuda.max_memory_allocated(device) if torch.device(device).type == "cuda" else 0
     jobs = driver.jobs(np.random.default_rng([seed, 7]))
-    for job in jobs:
-        if job["served"]:
-            job["firsts"] = tap.firsts(job["served"], argmax, sampled)
+    notes = [tap.fill(jobs, record) for tap, record in zip(taps, records)]
     traced = driver.works(tracer.units) if tracer is not None and tracer.units else []
     works = driver.works()
     driver.close()
-    del driver, firsts
+    del driver, taps, installed, records
     free(torch)
 
     t_ref = time.perf_counter()
-    got, mismatched = judge(ckpt, cell.config, jobs, device)
+    got = judge(arch, ckpt, cell.config, jobs, device)
     log(f"reference {time.perf_counter() - t_ref:.1f} s over {len(jobs)} jobs; "
-        f"{len(sampled)} sampled tokens recorded{' (overflowed)' if overflow else ''}")
-    checks, correct = verdict(got, mismatched, cell.spec["limits"])
+        + "; ".join(notes))
+    checks, correct = verdict(got, cell.spec["limits"], arch.FIXED)
 
     least, split = roofline.least_seconds(works)
     ctx = {"cell": name, "summary": summary, "least_s": least, "least_split": split,
            "traced_least_s": roofline.least_seconds(traced)[0] if traced else None,
+           "traced_units": list(tracer.units) if tracer is not None and tracer.units else [],
            "trace": tracer.result if tracer is not None else None}
     metrics = {}
     for m in cell.metrics(contract, trace):

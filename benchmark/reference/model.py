@@ -32,6 +32,8 @@ def _fp8(x: torch.Tensor) -> torch.Tensor:
 
 
 def _int4(x: torch.Tensor) -> torch.Tensor:
+    if x.numel() == 0:  # no generated row (a job that served one token)
+        return x
     g = x.reshape(*x.shape[:-1], -1, 32)
     s = g.abs().amax(-1, keepdim=True).clamp(min=1e-12) / 7.0
     return (torch.clamp(torch.round(g / s), -8, 7) * s).reshape(x.shape)

@@ -13,7 +13,13 @@ Pieces, from a configuration's widths:
 - `prefill(t, new, start)`: `new` prompt tokens after `start` cached ones,
   and the head at the last one;
 - `encode(a, tokens, windows)`: the conv frontend over `windows` 1-second
-  windows and the transformer over `tokens` with full attention.
+  windows and the transformer over `tokens` with full attention;
+- `classify_prefill(t, new, slots)`: the forced aligner's one prefill,
+  `new` prompt tokens through the layers, and its class head at the
+  `slots` rows alone.
+
+Weights are counted at the stated precision's bytes (q4_k unless a piece
+says otherwise), operations at the peak of the products' stated precision.
 
 Peaks: NVIDIA H100 SXM data sheet, dense: 989 TFLOP/s bf16, 1,979 TOP/s
 int8, 3.35 TB/s HBM3, at the full 700 W power limit.
@@ -87,7 +93,21 @@ def prefill(t: dict, new: int, start: int = 0) -> Work:
     return Work(flops, nbytes)
 
 
-def encode(a: dict, tokens: int, windows: int) -> Work:
+def classify_prefill(t: dict, new: int, slots: int,
+                     weight_bytes: float = Q4K_BYTES_PER_WEIGHT) -> Work:
+    """`new` tokens from position 0 through the layers, the head at `slots`
+    rows: every weight once, the KV written once, the activations of each
+    token, and the head's logits at the slots alone."""
+    layers, head = decoder_params(t)
+    rows = t.get("classify_num") or t["vocab_size"]
+    flops = 2.0 * layers * new + 2.0 * head * slots + _attn_flops(t, new, (new + 1) / 2)
+    nbytes = ((layers + head) * weight_bytes + _kv_bytes(t, new)
+              + new * (_act_bytes_per_token(t) - 4 * rows) + slots * 4 * rows)
+    return Work(flops, nbytes)
+
+
+def encode(a: dict, tokens: int, windows: int, weight_bytes: float = Q4K_BYTES_PER_WEIGHT,
+           peak: str = "bf16") -> Work:
     d, f, c = a["d_model"], a["encoder_ffn_dim"], a["downsample_hidden_size"]
     mels, win = a["num_mel_bins"], a["n_window"]
     conv = 0.0
@@ -102,9 +122,9 @@ def encode(a: dict, tokens: int, windows: int) -> Work:
     flops = windows * conv + 2.0 * per_token * tokens + 4.0 * tokens * tokens * d * a[
         "encoder_layers"]
     weights = per_token + 2 * c * c * 9 + c * 9
-    nbytes = weights * Q4K_BYTES_PER_WEIGHT + ACT_BYTES * (windows * mels * win
-                                                           + tokens * a["output_dim"])
-    return Work(flops, nbytes)
+    nbytes = weights * weight_bytes + ACT_BYTES * (windows * mels * win
+                                                   + tokens * a["output_dim"])
+    return Work(flops, nbytes, peak)
 
 
 def least_seconds(works: list) -> tuple[float, dict]:

@@ -81,9 +81,13 @@ class Driver:
             chunk_size=e["chunk_size"], memory_num=e["memory_num"],
             kv_prefix_reuse=e["kv_prefix_reuse"], pipelined_dispatch=e["pipelined_dispatch"],
             max_new_tokens=p["max_new_tokens"], decode_block=p["decode_block"],
-            enable_aligner=False, verbose=False)
+            verbose=False, **self.engine_options())
         self.engine = QwenASREngine(cfg, device=self.device)
         record_decodes(self.engine, self.recs)
+
+    def engine_options(self) -> dict:
+        """The engine's settings that a driver built on this one changes."""
+        return {"enable_aligner": False}
 
     def _call(self, clip: np.ndarray) -> dict:
         e = self.cfg["engine"]
@@ -166,13 +170,17 @@ class Driver:
         return prompts.file_jobs(tok, token_ids(tok), clip, e["chunk_size"], chunks,
                                  self.p["language"], e["n_ctx"], self.p["max_new_tokens"])
 
-    def jobs(self, rng) -> list:
-        """The chunks of `sample_calls` calls drawn from the seed."""
-        tok = self._tok()
+    def picks(self, rng) -> list[int]:
+        """The calls the reference checks: `sample_calls` drawn from the seed."""
         picks = rng.choice(len(self.calls), size=min(self.p["sample_calls"], len(self.calls)),
                            replace=False)
+        return sorted(int(i) for i in picks)
+
+    def jobs(self, rng) -> list:
+        """The chunks of the calls `picks` draws."""
+        tok = self._tok()
         out = []
-        for k in sorted(int(i) for i in picks):
+        for k in self.picks(rng):
             out += self._jobs_for(self.clip(k), self.calls[k]["chunks"], tok)
         return out
 
