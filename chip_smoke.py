@@ -132,7 +132,20 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    the headline engine (timed before these sessions) in one profiler window
    (phase block_profile: ms per step, device kernels per step, busy time,
    the card's idle share): last, so that no profiler session precedes a
-   timed phase, and none follows the block's large window.
+   timed phase, and none follows the block's large window; and the two
+   device kernels of one expert_matvec call (phase moe_device_kernels);
+26. (before the tp phases) kernel 8, the routed-expert int4 matvec, against
+   its plain version at Moonlight-16B-A3B's widths (8 slots of
+   [1408, 2048]: 6 routed experts and the shared SwiGLU's two halves), bf16
+   and f32 x, timed as phase 3 beside its bound and a torch.bmm yardstick,
+   and launched from the host; then QwenASREngine on the
+   qwen3-asr-1.7b-moonlight-16b-a3b preset (its checkpoint written on the
+   card by the benchmark's writer, `benchmark/architectures/mla_moe.py`) at
+   the benchmark cell's engine settings on the clip: kernel 8 once per MoE
+   layer per decode step and kernel 6 once per layer per step, counted from
+   0 just before the call, every step a graph replay (phase moe_asr); and
+   its chunk dispatch and a block behind it under
+   set_sync_debug_mode("error") (phase moe_sync_free).
 
 Every kernel's launches are counted in the run of its path (counts set to 0
 just before it). The last lines are the kernels summary, the nvidia-smi
@@ -169,6 +182,9 @@ ALIGNER_PRESET = "qwen3-forced-aligner-0.6b"
 F32_KERNEL_BOUND = 1e-4  # the decode attention over an f32 cache (sums in another order)
 F32_ORDER_BOUND = 1e-5  # f32 outputs against the plain versions that repeat a kernel's order
 ATTN_HEADLINE_WIN = 1024  # the attention window whose time stands in the kernels line
+MOE_CONFIG = "benchmark/configs/qwen3-asr-1.7b-moonlight-16b-a3b-int4.json"
+MOE_EXPERTS, MOE_WIDTH, MOE_SLOTS = 66, 1408, 8  # 64 routed + 2 shared halves; top 6 + 2
+MOE_COPIES = 8  # copies of the experts cycled in the timed graph (8 x 39 MB a call >> L2)
 REPLACES = {
     "q4k_matvec": "qwen3_asr_gguf_tpu/ops/pallas_q4k.py:324",
     "q4k_matvec_normed": "qwen3_asr_gguf_tpu/ops/pallas_q4k.py:594",
@@ -1876,7 +1892,7 @@ def asr_pipeline_phase(torch, engine, audio) -> dict:
     return row
 
 
-def block_sync_free_phase(torch, engine, audio) -> dict:
+def block_sync_free_phase(torch, engine, audio, phase: str = "block_sync_free") -> dict:
     """The tests' check of a dispatched chunk at full width: the headline
     engine's `_dispatch_chunk` (the chunk-0 prefill and one 96-step block)
     and one block queued behind it raise nothing under
@@ -1887,7 +1903,7 @@ def block_sync_free_phase(torch, engine, audio) -> dict:
     warm = engine._dispatch_chunk(ids, mask, feat, 0.4)
     gen.collect_block(warm["packed"])
     torch.cuda.synchronize()
-    row = {"phase": "block_sync_free", "block": gen.block, "runs": {}}
+    row = {"phase": phase, "block": gen.block, "runs": {}}
     for temperature in (0.0, 0.4):
         t0 = time.time()
         torch.cuda.set_sync_debug_mode("error")
@@ -1905,9 +1921,217 @@ def block_sync_free_phase(torch, engine, audio) -> dict:
             "tokens": len(toks), "more_tokens": len(more), "finished": finished,
             "chunk_dispatch_s": t1 - t0, "block_dispatch_s": t2 - t1, "collect_wait_s": t3 - t2,
             "ms_per_queued_step": (t2 - t1) * 1e3 / max(len(more), 1)}
-        require(len(toks) == gen.block or finished, f"block_sync_free: {len(toks)} tokens")
+        require(len(toks) == gen.block or finished, f"{phase}: {len(toks)} tokens")
     emit(row)
     return row
+
+
+def random_experts(torch, dev, g, e: int = MOE_EXPERTS, m: int = MOE_WIDTH, d: int = 2048):
+    """Random q4_0 expert planes (`ops.moe.ExpertWeights`) of `e` experts
+    [M, D] / [D, M] drawn on the card: any nibbles are valid weights."""
+    from qwen3_asr_gguf_tpu_torch.ops import moe
+
+    def planes(n, k):
+        return (torch.randint(0, 256, (e, n, k // 2), generator=g, device=dev, dtype=torch.uint8),
+                (torch.rand((e, n, k // 32), generator=g, device=dev) * 2e-3 + 1e-4).half())
+
+    return moe.ExpertWeights(*planes(m, d), *planes(m, d), *planes(d, m))
+
+
+def expert_call(torch, dev, g, x_dtype):
+    """(one expert_matvec call's arguments but the experts: x [1, 2048],
+    ids, wts) at MOE_SLOTS slots: 6 routed experts, then the shared
+    SwiGLU's two halves (experts 64 and 65) at weight 1."""
+    x = torch.randn((1, 2048), generator=g, device=dev).to(x_dtype)
+    ids = torch.tensor([5, 63, 17, 0, 40, 9, 64, 65], dtype=torch.int32, device=dev)
+    wts = torch.cat([torch.rand(6, generator=g, device=dev) * 0.4,
+                     torch.ones(2, device=dev)])
+    return x, ids, wts
+
+
+def eager_ms(torch, fn, args: list, runs: int = TIMED_RUNS) -> float:
+    """Wall time of one call launched from the host, between CUDA events
+    around `runs` back-to-back calls cycling through `args` (host launch
+    time included: the time a step outside a graph pays)."""
+    for a in args:
+        fn(a)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(runs):
+        fn(args[i % len(args)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def moe_kernel_phase(torch, dev) -> list[dict]:
+    """Kernel 8 (`ops.moe.expert_matvec`) against its plain version at
+    Moonlight-16B-A3B's widths: MOE_SLOTS slots of [1408, 2048] over 66
+    experts (64 routed and the shared SwiGLU's halves), bf16 and f32 x,
+    within KERNEL_BOUND * max|plain|. Timed as phase 3 (a CUDA graph of
+    calls over MOE_COPIES copies of the experts, so each call streams its
+    slots cold from HBM), beside its bound (the slots' bytes over the
+    memory rate) and a library yardstick (torch.bmm on the slots' experts
+    dequantized to bf16 and gathered beforehand: gate|up, then down); and
+    the same calls launched from the host (`eager_ms`), which is what a
+    reading outside a graph measures."""
+    from qwen3_asr_gguf_tpu_torch.ops import moe
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    copies = [random_experts(torch, dev, g) for _ in range(MOE_COPIES)]
+    rows = []
+    for x_dtype in (torch.bfloat16, torch.float32):
+        x, ids, wts = expert_call(torch, dev, g, x_dtype)
+        err, scale = rel_check(torch, f"expert_matvec/{x_dtype}",
+                               moe.expert_matvec(x, copies[0], ids, wts),
+                               moe.expert_matvec_ref(x, copies[0], ids, wts))
+        row = {"phase": "kernel", "name": "expert_matvec", "shape": "8x[1408,2048]",
+               "x": str(x_dtype).removeprefix("torch."), "slots": MOE_SLOTS,
+               "max_abs_err": err, "max_abs_plain": scale,
+               "bound": f"max_abs_err <= {KERNEL_BOUND} * max_abs_plain", "ok": True}
+        if x_dtype == torch.bfloat16:
+            m, d = MOE_WIDTH, 2048
+            nbytes = MOE_SLOTS * 3 * m * d * 18 // 32 + 2 * 2 * d + 8 * MOE_SLOTS
+            kern = lambda w: moe.expert_matvec(x, w, ids, wts)  # noqa: E731
+            plain = lambda w: moe.expert_matvec_ref(x, w, ids, wts)  # noqa: E731
+            ms = time_ms(kern, copies, torch)
+            least, by = bound_ms(nbytes, 2 * MOE_SLOTS * 3 * m * d, "int8")
+            dense = []
+            for w in copies[:4]:
+                sel = ids.long()
+                gu = torch.cat([moe.dequant(w.gate_qs[sel], w.gate_d[sel]),
+                                moe.dequant(w.up_qs[sel], w.up_d[sel])], 1).to(torch.bfloat16)
+                dense.append((gu, moe.dequant(w.down_qs[sel], w.down_d[sel]).to(torch.bfloat16)))
+
+            def library(w):
+                gu = torch.bmm(w[0], x.expand(MOE_SLOTS, 1, d).transpose(1, 2))[..., 0]
+                act = torch.nn.functional.silu(gu[:, :m]) * gu[:, m:]
+                y = torch.bmm(w[1], act[..., None])[..., 0]
+                return (wts[:, None].to(y.dtype) * y).sum(0)
+
+            row.update({"ms": ms, "plain_ms": eager_ms(torch, plain, copies, 10),
+                        "bound_ms": least, "bound_by": by,
+                        "library_ms": time_ms(library, dense, torch),
+                        "library": "two torch.bmm on the slots' experts dequantized to bf16 "
+                                   "and gathered beforehand (4x the weight bytes)",
+                        "eager_ms": eager_ms(torch, kern, copies),
+                        "weight_mb": nbytes / 1e6, "gb_per_s": nbytes / (ms * 1e6),
+                        "roofline_pct": 100.0 * least / ms})
+            del dense
+        emit(row)
+        rows.append(row)
+    del copies
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ensure_moe_checkpoint(torch, dev) -> tuple[Path, dict]:
+    """(directory, benchmark configuration) of the Moonlight-16B-A3B
+    checkpoint, written on the card by the benchmark's writer for its
+    configuration (`benchmark/architectures/mla_moe.py`) under
+    .bench_cache/torch/."""
+    from benchmark.architectures import mla_moe as arch
+
+    cfg = json.loads((REPO / MOE_CONFIG).read_text())
+    t0 = time.time()
+    model_dir, written = arch.checkpoint(cfg, REPO / ".bench_cache" / "torch", dev)
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_checkpoint", "config": cfg["name"], "written": written,
+          "seconds": time.time() - t0})
+    return model_dir, cfg
+
+
+def moe_asr_phase(torch, dev, audio) -> dict:
+    """QwenASREngine on the Moonlight-16B-A3B preset at the published widths
+    (27 layers, 64 routed experts top-6 and 2 shared, vocabulary 163,840)
+    behind the 1.7B's tower, at the benchmark cell's engine settings: a
+    warm-up call, then one call at 0.4 with the launch counts set to 0 just
+    before it: kernel 8 once per MoE layer per decode step (each call two
+    device launches, `device_kernels`), kernel 6 (kv_a_proj) once per layer
+    per step, every step replayed as a CUDA graph; then the chunk dispatch
+    and a block queued behind it under set_sync_debug_mode("error") (phase
+    moe_sync_free: no host read of the routing)."""
+    from qwen3_asr_gguf_tpu_torch import ASREngineConfig, QwenASREngine
+    from qwen3_asr_gguf_tpu_torch.ops import moe, q4k, qmm
+    from qwen3_asr_gguf_tpu_torch.utils.profiling import TRACER
+
+    model_dir, cfg = ensure_moe_checkpoint(torch, dev)
+    e = cfg["engine"]
+    t0 = time.time()
+    engine = QwenASREngine(ASREngineConfig(
+        model_dir=str(model_dir), llm_fn="qwen3_asr_llm.q4_k.gguf", precision=e["precision"],
+        n_ctx=e["n_ctx"], chunk_size=e["chunk_size"], memory_num=e["memory_num"],
+        verbose=False, max_new_tokens=96, decode_block=96,
+        kv_prefix_reuse=e["kv_prefix_reuse"], kv_cache_dtype=e["kv_cache_dtype"],
+        pipelined_dispatch=e["pipelined_dispatch"]), device=dev)
+    text = engine.dec_cfg
+    init_s = time.time() - t0
+    t0 = time.time()
+    engine.asr(audio, context="", language="Chinese", temperature=0.4)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    wrappers = (moe.expert_matvec, qmm.q4_matmul, q4k.q4k_matvec, q4k.q4k_matvec_normed)
+    for w in wrappers:
+        w.launches = 0
+    before = {k: TRACER.counters.get(k, 0) for k in ("decode.steps", "decode.graph_replays")}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    res = engine.asr(audio, context="", language="Chinese", temperature=0.4)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    steps, replays = (TRACER.counters.get(k, 0) - before[k] for k in before)
+    counts = {w.__name__: w.launches for w in wrappers}
+    n_moe = text.num_layers - text.first_k_dense_replace
+    perf = res.performance
+    row = {"phase": "moe_asr", "preset": cfg["name"], "temperature": 0.4, "audio_s": CLIP_SECONDS,
+           "init_s": init_s, "warmup_s": warm_s, "wall_s": wall, "rtf": wall / CLIP_SECONDS,
+           "decode_steps": steps, "graph_replays": replays, "launches": counts,
+           "moe_layers": n_moe, "decode_tokens": perf["decode_tokens"],
+           "decode_ms_per_step": perf["decode_time"] * 1e3 / max(steps, 1),
+           "text_chars": len(res.text),
+           "peak_gpu_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    emit(row)
+    require(steps > 0 and len(res.text) > 0, "moe_asr: no decode steps or an empty transcript")
+    require(replays == steps, f"moe_asr: {replays} of {steps} steps replayed as a graph")
+    require(counts["expert_matvec"] == n_moe * steps,
+            f"moe_asr: kernel 8 called {counts['expert_matvec']} times for {steps} steps "
+            f"of {n_moe} MoE layers")
+    require(counts["q4_matmul"] == text.num_layers * steps,
+            f"moe_asr: kernel 6 (kv_a_proj) {counts['q4_matmul']} for {steps} steps")
+    block_sync_free_phase(torch, engine, audio, phase="moe_sync_free")
+    engine.shutdown()
+    del engine
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_device_kernels(torch, dev) -> dict:
+    """The device kernels one expert_matvec call puts on the card
+    (torch.profiler through `device_launches`): two, gate/up of every slot
+    and then down of every slot summed."""
+    from qwen3_asr_gguf_tpu_torch.ops import moe
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    w = random_experts(torch, dev, g)
+    x, ids, wts = expert_call(torch, dev, g, torch.bfloat16)
+    call = lambda: moe.expert_matvec(x, w, ids, wts)  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    names, tries = device_launches(torch, call)
+    row = {"phase": "moe_device_kernels", "per_call": names, "sessions": tries}
+    emit(row)
+    require(len(names) == 2, f"expert_matvec: {names} on the device for one call")
+    return row
+
+
+def moe_phase(torch, dev, audio) -> tuple[list, dict]:
+    """Kernel 8 and the sparse-expert engine: `moe_kernel_phase`, then
+    `moe_asr_phase`. -> (kernel rows, the asr row)."""
+    rows = moe_kernel_phase(torch, dev)
+    return rows, moe_asr_phase(torch, dev, audio)
 
 
 def device_window(torch, call) -> tuple[list, int]:
@@ -3573,10 +3797,12 @@ def main() -> int:
     demo_streaming_phase(torch, dev, model_dir)
     verify_weights_phase(torch, dev)
     examples_phase(torch, dev, model_dir)
+    moe_rows, moe_asr = moe_phase(torch, dev, audio)
     kernel_rows += tp_kernel_phase(torch, dev, cfg.text)
     tp_launches = tp_phases(torch, dev, model_dir, audio, engine_greedy)
     block_walls = time_blocks(torch, block_gen, block_state)
     device_kernels_phase(torch, dev, cfg.text)
+    moe_device_kernels(torch, dev)
     cohort_kernels_phase(torch, block_gen, cohort_held)
     del cohort_held
     # its one large profiler session last: the sessions after such a window
@@ -3626,6 +3852,16 @@ def main() -> int:
             "shapes": {case(r): {**{key: r[key] for key in timed},
                                  "max_abs_err": r["max_abs_err"]} for r in mine},
         })
+    # kernel 8, the port's own (no TPU kernel): its bf16 row's times
+    timed_row = next(r for r in moe_rows if "ms" in r)
+    kernels.append({
+        "name": "expert_matvec", "route": "cuda",
+        "source": "qwen3_asr_gguf_tpu_torch/csrc/moe_matvec.cu", "replaces": None,
+        "launches": moe_asr["launches"]["expert_matvec"], "path": "moe_asr (temperature 0.4)",
+        "device_kernels_per_call": 2, "max_abs_err": max(r["max_abs_err"] for r in moe_rows),
+        **{key: timed_row[key] for key in timed + ("eager_ms", "bound_by")},
+        "shapes": {f"{timed_row['shape']}/{r['x']}": {"max_abs_err": r["max_abs_err"]}
+                   for r in moe_rows}})
     emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

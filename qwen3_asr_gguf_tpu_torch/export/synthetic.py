@@ -26,6 +26,7 @@ from ..models import decoder as dec_model
 from ..models import encoder as enc_model
 from ..models import params as P
 from ..models.configs import ThinkerConfig, preset
+from ..models.mla_config import is_mla
 from ..text.tokenizer import BPETokenizer, build_synthetic_tokenizer
 
 ASR_ENCODER_FN = "qwen3_asr_encoder.safetensors"
@@ -119,6 +120,8 @@ def make_synthetic_checkpoint(
 
     tok = build_synthetic_tokenizer(thinker.text.vocab_size)
     thinker = _thinker_ids_from_tokenizer(thinker, tok)
+    if is_mla(thinker.text):
+        return _mla_moe_checkpoint(Path(model_dir), thinker, tok, seed)
 
     d = Path(model_dir)
     d.mkdir(parents=True, exist_ok=True)
@@ -133,6 +136,30 @@ def make_synthetic_checkpoint(
     llm_fn = f"qwen3_{'aligner' if aligner else 'asr'}_llm.{quant}.gguf"
     P.save_encoder_safetensors(str(d / enc_fn), thinker.audio, enc_params)
     P.save_decoder_gguf(str(d / llm_fn), thinker.text, dec_params, tok, quant=quant)
+    P.save_thinker_config(str(d), thinker)
+    np.save(d / "mel_filters.npy", mel_filterbank())
+    return thinker
+
+
+ROUTER_BIAS_STD = 0.05  # `e_score_correction_bias` ~ N(0, 0.05): it moves some choices
+
+
+def _mla_moe_checkpoint(d: Path, thinker: ThinkerConfig, tok, seed: int) -> ThinkerConfig:
+    """The latent-attention sparse-expert decoder's checkpoint: the encoder
+    as for Qwen3, the decoder as a deepseek2 GGUF (`models.params.
+    save_mla_moe_gguf`: q4_k where rows are whole superblocks, q4_0
+    experts) drawn in sorted-key order, the router's correction bias drawn
+    after the rest, the head biased to CJK rows."""
+    d.mkdir(parents=True, exist_ok=True)
+    enc_params = np_init_like(enc_model.init_shapes(thinker.audio), seed)
+    enc_params["pos_embed"] = enc_model.sinusoid_positions(
+        thinker.audio.max_source_positions, thinker.audio.d_model)
+    dec_params = np_init_like(P.mla_moe_shapes(thinker.text), seed + 1)
+    bias = dec_params["moe_layers"]["router_bias"]
+    bias[:] = np.random.default_rng(seed + 2).standard_normal(bias.shape) * ROUTER_BIAS_STD
+    _bias_lm_head_cjk(dec_params, tok)
+    P.save_encoder_safetensors(str(d / ASR_ENCODER_FN), thinker.audio, enc_params)
+    P.save_mla_moe_gguf(str(d / "qwen3_asr_llm.q4_k.gguf"), thinker.text, dec_params, tok)
     P.save_thinker_config(str(d), thinker)
     np.save(d / "mel_filters.npy", mel_filterbank())
     return thinker

@@ -26,11 +26,14 @@ import torch
 
 from ..formats import GGUFReader, GGUFWriter
 from ..formats import quants as q
+from ..formats import q4_0
+from ..ops.moe import ExpertWeights, from_q4_0
 from ..ops.q4k import Q4KWeight, dequant_mxu, pack_q4k_mxu, pad_rows
 from ..ops.qtensor import Int8Weight, Q4Weight, dequant_int8, dequant_q4, dequant_q6k
 from ..text.tokenizer import BPETokenizer
 from . import safetensors_np
 from .configs import AudioEncoderConfig, TextDecoderConfig, ThinkerConfig
+from .mla_config import MLAMoEConfig
 
 # param name -> GGUF per-layer tensor suffix
 _LAYER_MAP = {
@@ -132,6 +135,8 @@ def load_decoder_gguf(
     if precision not in ("int4", "int8", "q4_k", "bf16", "f32"):
         raise ValueError(f"unknown decoder precision {precision!r}")
     reader = GGUFReader(path)
+    if reader.kv.get("general.architecture") == MLA_ARCH:
+        return load_mla_moe_gguf(reader, precision=precision, device=device)
     cfg = decoder_config_from_gguf(reader)
     tokenizer = BPETokenizer.from_gguf_kv(reader.kv)
     dense_dtype = torch.float32 if precision == "f32" else torch.bfloat16
@@ -240,6 +245,8 @@ def dequant_prefill_params(params: dict) -> dict:
     and the lm_head are shared with the decode params."""
 
     def leaf(v):
+        if isinstance(v, ExpertWeights):
+            return v.dense(torch.bfloat16)
         if isinstance(v, Q4KWeight):
             return dequant_mxu(v, dtype=torch.bfloat16)
         if isinstance(v, Q4Weight):
@@ -307,6 +314,243 @@ def save_decoder_gguf(
             arr = np32(stacked[i])
             t = rowsafe(mat_type, arr) if mine in _QUANTIZABLE else q.GGML_F32
             w.add_tensor(f"blk.{i}.{suffix}", arr, t)
+    w.write()
+    os.replace(tmp_path, path)
+
+
+# --------------------------------------------------------------------------
+# the latent-attention sparse-expert decoder (llama.cpp's deepseek2 layout)
+# --------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek2"
+# param name -> GGUF per-layer tensor suffix (models/mla_moe.py's names)
+_MLA_ATTN = {"attn_norm": "attn_norm.weight", "wq": "attn_q.weight",
+             "wkv_a": "attn_kv_a_mqa.weight", "kv_a_norm": "attn_kv_a_norm.weight",
+             "wkv_b": "attn_kv_b.weight", "wo": "attn_output.weight",
+             "mlp_norm": "ffn_norm.weight"}
+_MLA_DENSE = {"gate_proj": "ffn_gate.weight", "up_proj": "ffn_up.weight",
+              "down_proj": "ffn_down.weight"}
+_MLA_MOE = {"router": "ffn_gate_inp.weight", "router_bias": "exp_probs_b.bias",
+            "gate_exps": "ffn_gate_exps.weight", "up_exps": "ffn_up_exps.weight",
+            "down_exps": "ffn_down_exps.weight", "gate_shexp": "ffn_gate_shexp.weight",
+            "up_shexp": "ffn_up_shexp.weight", "down_shexp": "ffn_down_shexp.weight"}
+_MLA_NORMS = {"attn_norm", "kv_a_norm", "mlp_norm"}
+_MLA_EXPERTS = ("gate_exps", "up_exps", "down_exps", "gate_shexp", "up_shexp", "down_shexp")
+
+
+def mla_config_from_gguf(reader: GGUFReader) -> MLAMoEConfig:
+    kv = reader.kv
+
+    def g(suffix, default=None):
+        return kv.get(f"{MLA_ARCH}.{suffix}", default)
+
+    n_vocab, hidden = reader.tensors["token_embd.weight"].shape
+    rope = int(g("rope.dimension_count"))
+    return MLAMoEConfig(
+        vocab_size=n_vocab, hidden_size=int(g("embedding_length", hidden)),
+        num_layers=int(g("block_count")), num_heads=int(g("attention.head_count")),
+        q_lora_rank=int(g("attention.q_lora_rank", 0)) or None,
+        kv_lora_rank=int(g("attention.kv_lora_rank")),
+        qk_nope_head_dim=int(g("attention.key_length")) - rope, qk_rope_head_dim=rope,
+        v_head_dim=int(g("attention.value_length")),
+        intermediate_size=int(g("feed_forward_length")),
+        moe_intermediate_size=int(g("expert_feed_forward_length")),
+        n_routed_experts=int(g("expert_count")), n_shared_experts=int(g("expert_shared_count")),
+        num_experts_per_tok=int(g("expert_used_count")),
+        first_k_dense_replace=int(g("leading_dense_block_count")),
+        routed_scaling_factor=float(g("expert_weights_scale")),
+        norm_topk_prob=bool(g("expert_weights_norm", True)),
+        rms_norm_eps=float(g("attention.layer_norm_rms_epsilon")),
+        rope_theta=float(g("rope.freq_base")),
+    )
+
+
+def _device_bytes(reader: GGUFReader, name: str, device) -> torch.Tensor:
+    """A tensor's bytes as stored, on `device` (one copy from the file's map)."""
+    import warnings
+
+    with warnings.catch_warnings():  # the map is read-only; nothing writes to it
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(reader.tensor_bytes(name)).to(device)
+
+
+def load_mla_moe_gguf(reader: GGUFReader, *, precision: str = "int4", device="cpu"
+                      ) -> tuple[MLAMoEConfig, dict, BPETokenizer]:
+    """A deepseek2 GGUF as `models/mla_moe.py`'s parameters. The experts'
+    q4_0 bytes go to the device as stored and are split into kernel 8's
+    planes there (`ops.moe.from_q4_0`); nothing of them is repacked on the
+    host. "int4": wq, wo, the dense MLP and the head as `Q4KWeight` (kernels
+    1 and 2), wkv_a as `Q4Weight` (kernel 6), wkv_b dense f32; "bf16" /
+    "f32": those dense. Router, its bias and the norms f32; the embed
+    bf16 (f32 under "f32")."""
+    if precision not in ("int4", "bf16", "f32"):
+        raise NotImplementedError(f"decoder precision {precision!r} for {MLA_ARCH}")
+    cfg = mla_config_from_gguf(reader)
+    if cfg.q_lora_rank is not None:
+        raise NotImplementedError("a low-rank q projection (q_lora_rank) is not ported")
+    tokenizer = BPETokenizer.from_gguf_kv(reader.kv)
+    dense_dtype = torch.float32 if precision == "f32" else torch.bfloat16
+
+    def f32(name):
+        return _t(reader.tensor(name, dtype=np.float32), device, torch.float32)
+
+    def weight(name, kernel6=False):
+        if precision != "int4":
+            return _t(reader.tensor(name, dtype=np.float32), device, dense_dtype)
+        if kernel6:
+            ti = reader.tensors[name]
+            packed = (reader.packed_q4(name) if ti.ggml_type == q.GGML_Q4_K
+                      else q.pack_q4_direct(reader.tensor(name, dtype=np.float32)))
+            return Q4Weight.from_packed(packed, device=device)
+        return Q4KWeight.from_numpy(*_mxu_parts(reader, name), device=device)
+
+    def attn_leaf(mine, name):
+        if mine in _MLA_NORMS or mine == "wkv_b":
+            return f32(name)
+        return weight(name, kernel6=mine == "wkv_a")
+
+    jobs = [(i, mine, f"blk.{i}.{suffix}") for i in range(cfg.num_layers)
+            for mine, suffix in _MLA_ATTN.items()]
+    jobs += [(i, mine, f"blk.{i}.{suffix}") for i in range(cfg.first_k_dense_replace)
+             for mine, suffix in _MLA_DENSE.items()]
+    moe_layers = range(cfg.first_k_dense_replace, cfg.num_layers)
+    jobs += [(i, mine, f"blk.{i}.{_MLA_MOE[mine]}") for i in moe_layers
+             for mine in ("router", "router_bias")]
+
+    def load(job):
+        _, mine, name = job
+        if mine in _MLA_DENSE:
+            return weight(name)
+        if mine in ("router", "router_bias"):
+            return f32(name)
+        return attn_leaf(mine, name)
+
+    head_name = "output.weight" if "output.weight" in reader.tensors else "token_embd.weight"
+
+    def head():
+        if precision != "int4":
+            return weight(head_name)
+        parts = pad_rows(*pad_rows(*_mxu_parts(reader, head_name)), multiple=1024)
+        return Q4KWeight.from_numpy(*parts, device=device)
+
+    with ThreadPoolExecutor(max_workers=_WORKERS) as pool:
+        loaded = list(pool.map(load, jobs))
+        head_w = pool.submit(head).result()
+    layers: list[dict] = [{} for _ in range(cfg.num_layers)]
+    for (i, mine, _), v in zip(jobs, loaded):
+        layers[i][mine] = v
+    m, d = cfg.moe_intermediate_size, cfg.hidden_size
+    for i in moe_layers:
+        raw = {mine: _device_bytes(reader, f"blk.{i}.{_MLA_MOE[mine]}", device)
+               for mine in _MLA_EXPERTS}
+        e = cfg.n_routed_experts
+        layers[i]["experts"] = from_q4_0(
+            raw["gate_exps"].reshape(e, m, -1), raw["up_exps"].reshape(e, m, -1),
+            raw["down_exps"].reshape(e, d, -1), m, d,
+            shared=(raw["gate_shexp"].reshape(cfg.n_shared_experts * m, -1),
+                    raw["up_shexp"].reshape(cfg.n_shared_experts * m, -1),
+                    raw["down_shexp"].reshape(d, -1)))
+        del raw
+    params = {"embed": _embed(reader, device, dense_dtype), "layers": layers,
+              "final_norm": f32("output_norm.weight"), "lm_head": head_w}
+    return cfg, params, tokenizer
+
+
+def mla_moe_shapes(cfg: MLAMoEConfig) -> dict:
+    """Parameter shapes with stacked layers: "layers" (every layer's
+    attention and norms), "dense_layers" (the first `first_k_dense_replace`
+    layers' MLP), "moe_layers" (every later layer's router, its bias, the
+    routed experts [E, M, D] / [E, D, M] and the shared SwiGLU)."""
+    d, n, h = cfg.hidden_size, cfg.num_layers, cfg.num_heads
+    r, rope = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    nd = cfg.first_k_dense_replace
+    nm, e, m = n - nd, cfg.n_routed_experts, cfg.moe_intermediate_size
+    ms = cfg.n_shared_experts * m
+    return {
+        "embed": (cfg.vocab_size, d), "final_norm": (d,), "lm_head": (cfg.vocab_size, d),
+        "layers": {"attn_norm": (n, d), "wq": (n, h * cfg.qk_head_dim, d),
+                   "wkv_a": (n, r + rope, d), "kv_a_norm": (n, r),
+                   "wkv_b": (n, h * (cfg.qk_nope_head_dim + cfg.v_head_dim), r),
+                   "wo": (n, d, h * cfg.v_head_dim), "mlp_norm": (n, d)},
+        "dense_layers": {"gate_proj": (nd, cfg.intermediate_size, d),
+                         "up_proj": (nd, cfg.intermediate_size, d),
+                         "down_proj": (nd, d, cfg.intermediate_size)},
+        "moe_layers": {"router": (nm, e, d), "router_bias": (nm, e),
+                       "gate_exps": (nm, e, m, d), "up_exps": (nm, e, m, d),
+                       "down_exps": (nm, e, d, m), "gate_shexp": (nm, ms, d),
+                       "up_shexp": (nm, ms, d), "down_shexp": (nm, d, ms)},
+    }
+
+
+def save_mla_moe_gguf(path: str, cfg: MLAMoEConfig, params: dict,
+                      tokenizer: BPETokenizer) -> None:
+    """A deepseek2 GGUF from dense numpy params shaped as `mla_moe_shapes`:
+    q4_k matrices where their rows are whole 256-blocks (f16 otherwise),
+    q4_0 experts, f32 router, bias and norms, q6_k embed and head. Lands
+    atomically."""
+    tmp_path = path + ".tmp"
+    a = MLA_ARCH
+    w = GGUFWriter(tmp_path, arch=a)
+    for key, val in (("block_count", cfg.num_layers), ("embedding_length", cfg.hidden_size),
+                     ("feed_forward_length", cfg.intermediate_size),
+                     ("attention.head_count", cfg.num_heads),
+                     ("attention.head_count_kv", cfg.num_heads),
+                     ("attention.kv_lora_rank", cfg.kv_lora_rank),
+                     ("attention.key_length", cfg.qk_head_dim),
+                     ("attention.value_length", cfg.v_head_dim),
+                     ("rope.dimension_count", cfg.qk_rope_head_dim),
+                     ("leading_dense_block_count", cfg.first_k_dense_replace),
+                     ("expert_feed_forward_length", cfg.moe_intermediate_size),
+                     ("expert_count", cfg.n_routed_experts),
+                     ("expert_shared_count", cfg.n_shared_experts),
+                     ("expert_used_count", cfg.num_experts_per_tok),
+                     ("expert_gating_func", 2), ("vocab_size", cfg.vocab_size)):
+        w.add_u32(f"{a}.{key}", int(val))
+    w.add_f32(f"{a}.expert_weights_scale", cfg.routed_scaling_factor)
+    w.add_bool(f"{a}.expert_weights_norm", cfg.norm_topk_prob)
+    w.add_f32(f"{a}.attention.layer_norm_rms_epsilon", cfg.rms_norm_eps)
+    w.add_f32(f"{a}.rope.freq_base", cfg.rope_theta)
+    w.add_string("tokenizer.ggml.model", "gpt2")
+    w.add_string("tokenizer.ggml.pre", "qwen2")
+    w.add_str_array("tokenizer.ggml.tokens", tokenizer.tokens)
+    w.add_str_array(
+        "tokenizer.ggml.merges",
+        [f"{x} {y}" for (x, y), _ in sorted(tokenizer.merge_ranks.items(), key=lambda kv: kv[1])])
+    w.add_i32_array("tokenizer.ggml.token_type",
+                    [3 if t in tokenizer.special_tokens else 1 for t in tokenizer.tokens])
+    if tokenizer.eos_token_id is not None:
+        w.add_u32("tokenizer.ggml.eos_token_id", tokenizer.eos_token_id)
+
+    def np32(x):
+        return np.asarray(x, dtype=np.float32)
+
+    def matrix(arr, typ=q.GGML_Q4_K):
+        return typ if arr.shape[-1] % q.QUANT_SIZES[typ][0] == 0 else q.GGML_F16
+
+    def experts(name, arr):
+        w.add_raw_tensor(name, q4_0.quantize_q4_0(arr), arr.shape, q4_0.GGML_Q4_0)
+
+    embed, head = np32(params["embed"]), np32(params["lm_head"])
+    w.add_tensor("token_embd.weight", embed, matrix(embed, q.GGML_Q6_K))
+    w.add_tensor("output_norm.weight", np32(params["final_norm"]), q.GGML_F32)
+    w.add_tensor("output.weight", head, matrix(head, q.GGML_Q6_K))
+    nd = cfg.first_k_dense_replace
+    for i in range(cfg.num_layers):
+        for mine, suffix in _MLA_ATTN.items():
+            arr = np32(params["layers"][mine][i])
+            w.add_tensor(f"blk.{i}.{suffix}", arr,
+                         q.GGML_F32 if mine in _MLA_NORMS else matrix(arr))
+        if i < nd:
+            for mine, suffix in _MLA_DENSE.items():
+                arr = np32(params["dense_layers"][mine][i])
+                w.add_tensor(f"blk.{i}.{suffix}", arr, matrix(arr))
+            continue
+        for mine, suffix in _MLA_MOE.items():
+            arr = np32(params["moe_layers"][mine][i - nd])
+            if mine in _MLA_EXPERTS:
+                experts(f"blk.{i}.{suffix}", arr)
+            else:
+                w.add_tensor(f"blk.{i}.{suffix}", arr, q.GGML_F32)
     w.write()
     os.replace(tmp_path, path)
 
@@ -464,6 +708,10 @@ def save_thinker_config(model_dir: str, thinker: ThinkerConfig) -> None:
     Path(model_dir, "config.json").write_text(json.dumps(cfg, indent=2))
 
 
+def _text_config(raw: dict):
+    return MLAMoEConfig(**raw) if "kv_lora_rank" in raw else TextDecoderConfig(**raw)
+
+
 def load_thinker_config(model_dir: str) -> ThinkerConfig:
     p = Path(model_dir, "config.json")
     if not p.exists():
@@ -471,7 +719,7 @@ def load_thinker_config(model_dir: str) -> ThinkerConfig:
     raw = json.loads(p.read_text())
     return ThinkerConfig(
         audio=AudioEncoderConfig(**raw.get("audio_config", {})),
-        text=TextDecoderConfig(**raw.get("text_config", {})),
+        text=_text_config(raw.get("text_config", {})),
         audio_token_id=raw.get("audio_token_id", 151646),
         audio_start_token_id=raw.get("audio_start_token_id", 151647),
         im_start_token_id=raw.get("im_start_token_id", 151644),

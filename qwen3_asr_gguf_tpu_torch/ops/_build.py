@@ -98,6 +98,14 @@ _SIGNATURES = {
         _I, _I, _I,  # blocks, Wd slab rows per block, dynamic shared memory (ops.mlp.fused_mlp_plan)
         _P,  # stream
     ],
+    "moe_matvec_launch": [
+        _P, _I,  # x, x_is_bf16 (out takes x's dtype)
+        _P, _P,  # ids (int32), wts (f32), one per slot
+        _P, _P, _P, _P, _P, _P,  # gate qs, d; up qs, d; down qs, d (q4_0 planes)
+        _P, _P,  # scratch (slots x m x 1.25 bytes), out
+        _I, _I, _I,  # slots, m, d
+        _P,  # stream
+    ],
 }
 
 _lock = threading.Lock()

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..models import decoder as dec
+from ..models.mla_config import refuse
 from ..ops.sampling import sample_rows
 from ..schema import TranscribeResult
 from .continuous import batch_rows
@@ -144,6 +145,7 @@ class BatchedEngine:
     """
 
     def __init__(self, engine, *, block: int = 32):
+        refuse(engine.dec_cfg, "BatchedEngine")
         self.engine = engine
         gen = engine.generator
         self.chunk_samples = int(engine.config.chunk_size * SAMPLE_RATE)

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from ..models import decoder as dec
+from ..models.mla_config import refuse
 from ..ops.qtensor import kernel_rows
 from ..ops.sampling import sample_rows
 from ..parallel.collectives import broadcast_object
@@ -146,6 +147,7 @@ class ContinuousBatcher:
 
     def __init__(self, engine, *, max_batch: int = 8, block: int = 16,
                  max_new_tokens: Optional[int] = None):
+        refuse(engine.dec_cfg, "ContinuousBatcher")
         self.engine = engine
         self.device = engine.device
         gen = engine.generator

@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from ..models import params as P
+from ..models.mla_config import refuse
 from ..schema import (
     ASREngineConfig,
     DecodeResult,
@@ -203,6 +204,7 @@ class QwenASREngine:
         if config.mesh_shape:
             from ..parallel import sharding as S
 
+            refuse(thinker.text, "tensor parallelism (mesh_shape)")
             self.mesh = S.make_mesh(dict(config.mesh_shape))
             _, tp = S.mesh_dim(self.mesh, "model")
             if dec_precision == "int4" and not S.int4_tp_supported(thinker.text, tp):

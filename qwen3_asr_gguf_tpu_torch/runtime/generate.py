@@ -65,7 +65,9 @@ import numpy as np
 import torch
 
 from ..models import decoder as dec
+from ..models import mla_moe
 from ..models.configs import TextDecoderConfig
+from ..models.mla_config import is_mla
 from ..ops import _build
 from ..ops.qtensor import kernel_rows
 from ..ops.sampling import sample
@@ -117,6 +119,7 @@ class HostCopy:
     def __init__(self, dev: torch.Tensor):
         self.dev = dev
         self.event = None
+        self.moe_hists: list = []  # the prefills' routing histograms this block waits behind
         if dev.device.type == "cuda":
             self.host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
             self.host.copy_(dev, non_blocking=True)
@@ -182,8 +185,10 @@ class CachePool:
     def owns(self, cache: dict) -> bool:
         """Whether `cache` holds this pool's own tensors of its slot (not a
         copy, nor another pool's slot)."""
-        return (isinstance(cache, PooledCache) and cache.slot < len(self._caches)
-                and cache["k"] is self._caches[cache.slot]["k"])
+        if not isinstance(cache, PooledCache) or cache.slot >= len(self._caches):
+            return False
+        mine = self._caches[cache.slot]
+        return all(cache.get(key) is tensors for key, tensors in mine.items())
 
     def _give_back(self, slot: int) -> None:
         with self._lock:
@@ -247,6 +252,9 @@ class GenState:
     done: torch.Tensor  # [1] bool on the device: the EOS / repetition latch
     pos_bound: int  # host bound on pos: exact after a prefill, + block per block
     watch: DoneWatch = dataclasses.field(default_factory=DoneWatch)
+    # the MoE prefill's per-layer expert row counts (`HostCopy`), read at the
+    # first block's collect
+    moe_hists: list = dataclasses.field(default_factory=list)
 
 
 def round_up(n: int, m: int) -> int:
@@ -364,6 +372,12 @@ class Generator:
         self.cfg = cfg
         self.device = torch.device(device)
         self.mesh = mesh
+        # the decoder's forwards: the latent-attention sparse-expert block or Qwen3's
+        self.mla = is_mla(cfg)
+        self.model = mla_moe if self.mla else dec
+        if self.mla and mesh is not None:
+            raise NotImplementedError("tensor parallelism does not run the latent-attention "
+                                      "sparse-expert decoder (MLAMoEConfig)")
         self.tp_group = None
         self.step_cfg = cfg  # the config of the local tiles the forward runs on
         self._seeds = None
@@ -415,9 +429,10 @@ class Generator:
 
     @property
     def prefill_params(self) -> dict:
-        """Prefill-side weights, derived on first use."""
+        """Prefill-side weights, derived on first use (always for the
+        sparse-expert decoder: its prefill takes the experts' dense copy)."""
         if self._prefill_params is None:
-            if self._dequant_prefill:
+            if self._dequant_prefill or self.mla:
                 from ..models.params import dequant_prefill_params
 
                 self._prefill_params = dequant_prefill_params(self.params)
@@ -454,8 +469,8 @@ class Generator:
         # whole 256-slot tiles at any n_ctx: the decode window (a 256-slot
         # bucket) is then always one the attention kernel takes; positions
         # stay below n_ctx, so the extra slots are never attended to
-        return dec.init_cache(self.step_cfg, round_up(self.n_ctx, 256), self.cache_dtype,
-                              device=self.device)
+        return self.model.init_cache(self.step_cfg, round_up(self.n_ctx, 256),
+                                     self.cache_dtype, device=self.device)
 
     def _rng(self, seed: int | None) -> torch.Generator:
         if seed is None:
@@ -475,10 +490,17 @@ class Generator:
     def _is_eos(self, tok: torch.Tensor) -> torch.Tensor:
         return (tok.view(-1, 1) == self.eos_dev).any(-1)
 
-    def _start(self, params, hidden, length, temperature, gen, cache, pos, pos_bound: int
-               ) -> GenState:
+    def _prefill_kw(self, hists: list) -> dict:
+        """The prefill's extra arguments: the MoE layers' row counts go to
+        `hists`."""
+        return {"hists": hists} if self.mla else {}
+
+    def _start(self, params, hidden, length, temperature, gen, cache, pos, pos_bound: int,
+               hists: list = ()) -> GenState:
         """Sample the first token from the prompt's last row (`length` a host
-        int or a [1] device tensor) and wrap the state; nothing is read back."""
+        int or a [1] device tensor) and wrap the state; nothing is read back.
+        `hists`: the MoE prefill's per-layer expert row counts, copied to the
+        host behind the prefill and read at the first block's collect."""
         if isinstance(length, torch.Tensor):
             last = hidden.index_select(0, (length - 1).to(torch.int64))[0]
         else:
@@ -490,6 +512,8 @@ class Generator:
         state = GenState(cache=cache, pos=pos, last_token=tok, generator=gen,
                          done=self._is_eos(tok), pos_bound=pos_bound)
         state.watch.record(state.done)
+        if hists:
+            state.moe_hists.append(HostCopy(torch.stack(list(hists))))
         return state
 
     def start_spliced(
@@ -512,9 +536,11 @@ class Generator:
         cache = cache if cache is not None else self.new_cache()
         params = self.prefill_params
         embd = dec.splice_prompt(params, ids_p, mask_p, audio_embd)
-        hidden, cache = dec.forward_prefill(params, self.step_cfg, embd, cache, length=t,
-                                            tp_group=self.tp_group)
-        return self._start(params, hidden, t, temperature, gen, cache, t, t)
+        hists: list = []
+        hidden, cache = self.model.forward_prefill(params, self.step_cfg, embd, cache, length=t,
+                                                   tp_group=self.tp_group,
+                                                   **self._prefill_kw(hists))
+        return self._start(params, hidden, t, temperature, gen, cache, t, t, hists)
 
     def start_spliced_at(
         self,
@@ -543,11 +569,12 @@ class Generator:
         gen = self._rng(seed)
         params = self.prefill_params
         embd = dec.splice_prompt(params, ids_p, mask_p, audio_embd)
-        hidden, cache = dec.forward_prefill_at(
+        hists: list = []
+        hidden, cache = self.model.forward_prefill_at(
             params, self.step_cfg, embd, cache, start, prefix_window=prefix_window,
-            length=length, tp_group=self.tp_group)
+            length=length, tp_group=self.tp_group, **self._prefill_kw(hists))
         return self._start(params, hidden, length, temperature, gen, cache, start + length,
-                           pos_bound)
+                           pos_bound, hists)
 
     def start_spliced_at_spec(
         self,
@@ -641,7 +668,9 @@ class Generator:
         new_state = GenState(cache=state.cache, pos=pos, last_token=tok,
                              generator=state.generator, done=done,
                              pos_bound=bound + self.block, watch=state.watch)
-        return new_state, HostCopy(packed)
+        out = HostCopy(packed)
+        out.moe_hists, state.moe_hists = state.moe_hists, []
+        return new_state, out
 
     def _step(self, b: StepBuffers, cache: dict, win: int, temperature,
               generator: torch.Generator) -> None:
@@ -655,7 +684,7 @@ class Generator:
         tokens among this block's last 15 emitted, from its 16th step on; the
         engine's host check over the stable stream stays authoritative
         across blocks."""
-        hidden, _ = dec.forward_step_layers(
+        hidden, _ = self.model.forward_step_layers(
             self.layers_list, self.params["final_norm"], self.step_cfg,
             self.params["embed"].index_select(0, b.tok)[0], cache, b.pos, attn_window=win,
             fused_mlp=self.fused_mlp, tp_group=self.tp_group)
@@ -756,11 +785,18 @@ class Generator:
     def collect_block(packed: HostCopy | None) -> tuple[list[int], bool, bool]:
         """(tokens fed, finished, rep_aborted) of a dispatched block: one wait
         for its packed copy. The tokens exclude a sampled EOS; `finished` is
-        set by EOS, by the repetition latch or by a full context (None)."""
+        set by EOS, by the repetition latch or by a full context (None). The
+        MoE prefill's row counts that the block was queued behind (done once
+        its copy is) go to the counters `moe.rows` and `moe.rows_hottest`,
+        one count of each per MoE layer."""
         if packed is None:
             return [], True, False
         with profiling.span("decode.collect"):
             arr = packed.fetch()
+            for hist in packed.moe_hists:
+                for row in hist.fetch():
+                    profiling.count("moe.rows", int(row.sum()))
+                    profiling.count("moe.rows_hottest", int(row.max()))
         return [int(t) for t in arr[:-2] if t >= 0], bool(arr[-2]), bool(arr[-1])
 
     def decode_block(self, state: GenState, temperature: float = 0.4

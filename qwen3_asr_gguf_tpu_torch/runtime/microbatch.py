@@ -17,6 +17,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..models.mla_config import refuse
 from ..schema import TranscribeResult
 
 
@@ -35,6 +36,7 @@ class MicroBatcher:
     def __init__(self, engine, *, window_s: float = 0.05, max_batch: int = 8):
         from .batched import BatchedEngine
 
+        refuse(engine.dec_cfg, "MicroBatcher")
         self.engine = engine
         self.batched = BatchedEngine(engine)
         self.batched.gen.rows(max_batch)  # a width the kernels cannot take is refused here
