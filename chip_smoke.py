@@ -145,7 +145,17 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
    layer per decode step and kernel 6 once per layer per step, counted from
    0 just before the call, every step a graph replay (phase moe_asr); and
    its chunk dispatch and a block behind it under
-   set_sync_debug_mode("error") (phase moe_sync_free).
+   set_sync_debug_mode("error") (phase moe_sync_free);
+27. (after encoder_check) the audio encoder replayed as a CUDA graph per
+   input key (phase encode_graph): the 1.7B's int4 tower and the 0.6B
+   aligner's int8 tower of the checkpoint and a random 0.6B int4 tower, at
+   the keys the cells meet (the aligned 40 s chunk, the aligner's 4,500-frame
+   bucket at two lengths, the stream's buckets) and a 2 s aligned key whose
+   products all run kernel 6; per key the eager and the replayed encode
+   timed, graph against eager bit for bit, and kernel 6's launches of a
+   replay equal to an eager encode's (a capture's launches count once per
+   replay); then, in a process of its own, the device kernels of one eager
+   encode and of one replay at each tower's first key.
 
 Every kernel's launches are counted in the run of its path (counts set to 0
 just before it). The last lines are the kernels summary, the nvidia-smi
@@ -155,6 +165,7 @@ the package is missing, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -185,6 +196,14 @@ ATTN_HEADLINE_WIN = 1024  # the attention window whose time stands in the kernel
 MOE_CONFIG = "benchmark/configs/qwen3-asr-1.7b-moonlight-16b-a3b-int4.json"
 MOE_EXPERTS, MOE_WIDTH, MOE_SLOTS = 66, 1408, 8  # 64 routed + 2 shared halves; top 6 + 2
 MOE_COPIES = 8  # copies of the experts cycled in the timed graph (8 x 39 MB a call >> L2)
+ENCODE_GRAPH_KEYS = {  # tower: (samples, bucketed) of each case, one key or two lengths of one
+    "1.7b": ((40 * 16_000, False), (2 * 16_000, False), (41 * 16_000 + 555, False),
+             (44 * 16_000 + 7, False)),
+    "aligner": ((41 * 16_000 + 555, False), (44 * 16_000 + 7, False), (12 * 16_000 + 5, False)),
+    "0.6b": ((2 * 16_000, True), (20 * 16_000 + 160, True), (48 * 16_000, True),
+             (60 * 16_000, True)),
+}
+ENCODE_TIMED_RUNS = (5, 20)  # eager, replayed: encodes per median
 REPLACES = {
     "q4k_matvec": "qwen3_asr_gguf_tpu/ops/pallas_q4k.py:324",
     "q4k_matvec_normed": "qwen3_asr_gguf_tpu/ops/pallas_q4k.py:594",
@@ -2127,6 +2146,131 @@ def moe_device_kernels(torch, dev) -> dict:
     return row
 
 
+def encode_towers(torch, dev, model_dir: Path) -> dict:
+    """name -> (config, params) of the encode_graph phase's towers: the
+    checkpoint's 1.7B (int4) and aligner (int8) encoders, and a random 0.6B
+    int4 tower written once under .bench_cache/torch/."""
+    from qwen3_asr_gguf_tpu_torch import preset
+    from qwen3_asr_gguf_tpu_torch.export.synthetic import np_init_like
+    from qwen3_asr_gguf_tpu_torch.models import encoder as enc
+    from qwen3_asr_gguf_tpu_torch.models import params as P
+
+    small = REPO / ".bench_cache" / "torch" / "encoder-0.6b" / "qwen3_asr_encoder.safetensors"
+    if not small.exists():
+        cfg = preset("qwen3-asr-0.6b").audio
+        tree = np_init_like(enc.init_shapes(cfg), 2)
+        tree["pos_embed"] = enc.sinusoid_positions(cfg.max_source_positions, cfg.d_model)
+        small.parent.mkdir(parents=True, exist_ok=True)
+        P.save_encoder_safetensors(str(small), cfg, tree)
+        del tree
+    return {"1.7b": P.load_encoder_quantized(str(model_dir / "qwen3_asr_encoder.safetensors"),
+                                             kind="int4", device=dev),
+            "aligner": P.load_encoder_quantized(
+                str(model_dir / "qwen3_aligner_encoder.safetensors"), kind="int8", device=dev),
+            "0.6b": P.load_encoder_quantized(str(small), kind="int4", device=dev)}
+
+
+def encode_graph_phase(torch, dev, model_dir: Path) -> list[dict]:
+    """The encoder as a replayed CUDA graph per input key against the eager
+    encode (`cuda_graphs=False`) on the same weights: bit for bit, both
+    timed, kernel 6's launches (the 2 s key's products) counted once per
+    replay; then `encode_kernel_counts` in a process of its own."""
+    from qwen3_asr_gguf_tpu_torch.ops import qmm
+    from qwen3_asr_gguf_tpu_torch.runtime.encoder_runner import EncoderRunner
+
+    rows = []
+    for name, (cfg, params) in encode_towers(torch, dev, model_dir).items():
+        eager = EncoderRunner(params, cfg, device=dev, cuda_graphs=False)
+        graph = EncoderRunner(params, cfg, device=dev)
+        for n, bucketed in ENCODE_GRAPH_KEYS[name]:
+            audio = synthetic_clip(n / 16_000 + 1)[:n]
+            key = graph.encode_key(n, bucketed)
+            src = torch.from_numpy(audio).to(dev) if key[0] == "aligned" else audio
+            fresh = key not in graph.graphs
+            launches0 = qmm.q4_matmul.launches
+            want = eager.encode(src, bucketed=bucketed)
+            eager_launches = qmm.q4_matmul.launches - launches0
+            got = graph.encode(src, bucketed=bucketed)  # the key's capture when fresh
+            launches1 = qmm.q4_matmul.launches
+            again = graph.encode(src, bucketed=bucketed)
+            torch.cuda.synchronize()
+            replay_launches = qmm.q4_matmul.launches - launches1
+            equal = torch.equal(got, want) and torch.equal(again, want)
+            eager_ms = 1e3 * synced_median_s(
+                torch, lambda: eager.encode(src, bucketed=bucketed), ENCODE_TIMED_RUNS[0])
+            graph_ms = 1e3 * synced_median_s(
+                torch, lambda: graph.encode(src, bucketed=bucketed), ENCODE_TIMED_RUNS[1])
+            row = {"phase": "encode_graph", "tower": name, "layers": cfg.encoder_layers,
+                   "weights": "int8" if name == "aligner" else "int4", "samples": n,
+                   "bucketed": bucketed, "key": list(key), "captured_here": fresh,
+                   "valid_tokens": graph.valid_tokens(n), "rows": int(want.shape[-2]),
+                   "bit_equal": equal, "eager_ms": eager_ms, "graph_ms": graph_ms,
+                   "speedup": eager_ms / graph_ms,
+                   "q4_matmul_launches": {"eager": eager_launches, "replay": replay_launches}}
+            emit(row)
+            rows.append(row)
+            require(equal, f"encode_graph {name} {key}: graph and eager differ")
+            require(replay_launches == eager_launches,
+                    f"encode_graph {name} {key}: {replay_launches} q4_matmul launches counted "
+                    f"for a replay, {eager_launches} for an eager encode")
+        require(set(graph.graphs) == {graph.encode_key(n, b) for n, b in ENCODE_GRAPH_KEYS[name]},
+                f"encode_graph {name}: keys {sorted(graph.graphs)}")
+        del eager, graph
+        torch.cuda.empty_cache()
+    short = [r for r in rows if r["key"] == ["aligned", 2 * 16_000]]
+    require(short and short[0]["q4_matmul_launches"]["eager"] > 0,
+            "encode_graph: the 2 s key's products never ran kernel 6")
+    # the device kernels in a process of its own: profiler sessions late in a
+    # process lose their markers once many events were recorded, and the
+    # phases after this one count theirs
+    script = ENCODE_KERNELS_SCRIPT.format(repo=str(REPO), model_dir=str(model_dir))
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          timeout=900)
+    require(proc.returncode == 0, f"encode_graph kernels: rc {proc.returncode}: "
+                                  f"{proc.stderr[-2000:]}")
+    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit({"phase": "encode_graph_kernels", "per_encode": counts,
+          "keys": {name: list(keys[0]) for name, keys in ENCODE_GRAPH_KEYS.items()}})
+    require(all(c["eager"] > 1000 and c["replay"] >= c["eager"] for c in counts.values()),
+            f"encode_graph kernels: {counts}")
+    return rows
+
+
+ENCODE_KERNELS_SCRIPT = """
+import json, sys
+sys.path.insert(0, {repo!r})
+import torch
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+print(json.dumps(cs.encode_kernel_counts(torch, torch.device("cuda", 0), cs.Path({model_dir!r}))))
+"""
+
+
+def encode_kernel_counts(torch, dev, model_dir: Path) -> dict:
+    """tower -> the device kernels of one eager encode and of one replay at
+    its first key of ENCODE_GRAPH_KEYS (`device_launches`)."""
+    from qwen3_asr_gguf_tpu_torch.runtime.encoder_runner import EncoderRunner
+
+    device_launches(torch, None)  # until a session sees the markers alone
+    out = {}
+    for name, (cfg, params) in encode_towers(torch, dev, model_dir).items():
+        n, bucketed = ENCODE_GRAPH_KEYS[name][0]
+        eager = EncoderRunner(params, cfg, device=dev, cuda_graphs=False)
+        graph = EncoderRunner(params, cfg, device=dev)
+        audio = synthetic_clip(n / 16_000 + 1)[:n]
+        src = torch.from_numpy(audio).to(dev) if graph.encode_key(n, bucketed)[0] == "aligned" \
+            else audio
+        for runner in (eager, graph):  # warm; the graph's capture
+            runner.encode(src, bucketed=bucketed)
+        torch.cuda.synchronize()
+        out[name] = {kind: len(device_launches(
+            torch, lambda r=r: r.encode(src, bucketed=bucketed))[0])
+            for kind, r in (("eager", eager), ("replay", graph))}
+    return out
+
+
 def moe_phase(torch, dev, audio) -> tuple[list, dict]:
     """Kernel 8 and the sparse-expert engine: `moe_kernel_phase`, then
     `moe_asr_phase`. -> (kernel rows, the asr row)."""
@@ -3766,6 +3910,7 @@ def main() -> int:
     require(tuple(emb.shape) == (n_tok, cfg.audio.output_dim), f"encoder shape {tuple(emb.shape)}")
     require(bool(torch.isfinite(emb).all()), "encoder output not finite")
     emit({"phase": "encoder_check", "shape": list(emb.shape), "finite": True})
+    encode_graph_phase(torch, dev, model_dir)
 
     for kv in (torch.bfloat16, torch.int8):
         rows_step_check(torch, engine, kv)
@@ -3797,6 +3942,11 @@ def main() -> int:
     demo_streaming_phase(torch, dev, model_dir)
     verify_weights_phase(torch, dev)
     examples_phase(torch, dev, model_dir)
+    # the MoE engine takes ~41 GB: free the earlier phases' engines first (the
+    # serve phases' batchers sit in reference cycles, and each engine holds its
+    # encoder's and decoder's graph pools until it is collected)
+    gc.collect()
+    torch.cuda.empty_cache()
     moe_rows, moe_asr = moe_phase(torch, dev, audio)
     kernel_rows += tp_kernel_phase(torch, dev, cfg.text)
     tp_launches = tp_phases(torch, dev, model_dir, audio, engine_greedy)

@@ -103,6 +103,14 @@ def log_mel_np(audio: np.ndarray, filters: np.ndarray) -> np.ndarray:
     return (((log_spec + 4.0) / 4.0).T).astype(np.float32)
 
 
+def valid_frame_mask(valid_frames, n_frames: int, device) -> torch.Tensor:
+    """[B, n_frames, 1] bool, frame f of signal b valid below `valid_frames`
+    (an int, one per signal, or an int tensor on `device`, read there: a
+    captured encode's mask follows its device buffer)."""
+    vf = torch.as_tensor(valid_frames, device=device).reshape(-1, 1, 1)
+    return torch.arange(n_frames, device=device)[None, :, None] < vf
+
+
 class LogMelFrontend:
     """audio -> [n_mels, T] log-mel on the audio tensor's device."""
 
@@ -140,8 +148,7 @@ class LogMelFrontend:
         lead = y.shape[:-1]
         frames = y.float().reshape(-1, y.shape[-1]).unfold(-1, N_FFT, HOP)[:, :n_frames_bucket]
         log_spec = self._power_mel(frames)  # [B, F, n_mels]
-        vf = torch.as_tensor(valid_frames, device=y.device).reshape(-1, 1, 1)
-        valid = torch.arange(n_frames_bucket, device=y.device)[None, :, None] < vf
+        valid = valid_frame_mask(valid_frames, n_frames_bucket, y.device)
         vmax = torch.where(valid, log_spec, torch.full_like(log_spec, -float("inf"))).amax(
             dim=(1, 2), keepdim=True)
         log_spec = torch.maximum(log_spec, vmax - 8.0)

@@ -115,6 +115,14 @@ def conv_frontend(params: Params, cfg: AudioEncoderConfig, mel: torch.Tensor,
     return x.reshape(*lead, n_chunks * tw, -1)
 
 
+def valid_key_mask(valid_tokens, t: int, device) -> torch.Tensor:
+    """[B, t] bool, key j of input b valid below `valid_tokens` (an int,
+    one per input, or an int tensor on `device`, read there: a captured
+    encode's mask follows its device buffer)."""
+    vt = torch.as_tensor(valid_tokens, device=device).reshape(-1, 1)
+    return torch.arange(t, device=device)[None, :] < vt
+
+
 def _mha(layer: Params, cfg: AudioEncoderConfig, x: torch.Tensor, key_mask=None,
          tp_group=None) -> torch.Tensor:
     """x [B, T, D] bidirectional attention within each row (over the
@@ -164,8 +172,7 @@ def backend_transformer(params: Params, cfg: AudioEncoderConfig, hidden: torch.T
             raise ValueError("sequence parallelism splits the windows of windowed attention")
         x = hidden
         if valid_tokens is not None:
-            vt = torch.as_tensor(valid_tokens, device=hidden.device).reshape(-1, 1)
-            key_mask = torch.arange(t, device=hidden.device)[None, :] < vt
+            key_mask = valid_key_mask(valid_tokens, t, hidden.device)
 
     for layer in params["layers"]:
         # f32 biases promote the residual branch; cast back to the stream dtype
